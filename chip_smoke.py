@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's WORKING tracking step once on one NVIDIA GPU.
+"""Drive the PyTorch port on one NVIDIA GPU: the WORKING tracking step, and
+the whole system (`Slam.process`) from the first frame.
 
     python3 chip_smoke.py
 
@@ -14,17 +15,33 @@ Phases (any failure raises, so the script exits non-zero):
   4. slice       the fused step (FusedContext/FusedStep) on the card over the
                  fixture's frames from the JAX reference's recorded state,
                  checked against the reference's recorded outputs; the FAST
-                 kernel must have run 8 times per frame
+                 kernel must have run 8 times per frame. Then one frame from
+                 a perturbed seed pose, where the step must take its wide
+                 recovery pass, against the reference's outputs there
   5. throughput  200 steps cycling the fixture, re-seeding the pose at each
                  wrap: p50/p95 ms per frame, frames/s, peak device memory
   6. breakdown   the step's layers timed alone at the step's shapes, and a
                  torch.profiler window over 9 steps (device busy share)
+  7. system      `Slam(cfg, vocab=None, device="cuda")` at the shipping widths
+                 over the 28 frames of the system fixture, from the first
+                 frame (initialization, keyframes, triangulation, fusion,
+                 local BA, culling), the reference's RANSAC minimal sets
+                 injected, then `finish()`; held to the JAX reference's
+                 recorded outcome (states, keyframe and point counts, camera
+                 centres, keyframe ATE); the FAST kernel must run on the
+                 initialization frames and on the fused frames. Reports ms
+                 per `process` call (initialization / keyframe / other
+                 frames), the tracer's stage summary, host reads per frame
+                 and peak device memory. A second, untimed system over the
+                 same frames counts host synchronisations per frame (CUDA
+                 sync debug mode) and shows how far two runs on the card
+                 agree.
 
-The fixture (orbslam_jpminipc_torch/data/track_fixture_xyz.npz) carries real
-frames, the reference's map slice and pose, and the reference's outputs; it
-is written by tools/make_torch_fixture.py. Details go to
-chiprun_out/chip_smoke.json. The last line of standard output is
-{"ok": true, "device": {...}}.
+The fixtures (orbslam_jpminipc_torch/data/track_fixture_xyz.npz and
+slam_fixture_xyz.npz) carry real frames and the reference's state and
+outputs; tools/make_torch_fixture.py and tools/make_torch_slam_fixture.py
+write them. Details go to chiprun_out/chip_smoke.json. The last line of
+standard output is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -39,6 +56,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "track_fixture_xyz.npz")
+SLAM_FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "slam_fixture_xyz.npz")
 LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
                 (231, 309), (193, 257), (161, 214), (134, 179)]
 # parity with the reference's recorded outputs on the card: pose entries,
@@ -46,6 +64,12 @@ LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
 TOL_POSE = 1e-3
 TOL_BIND = 0.95
 TOL_INLIERS = 0.03
+# the whole system against the reference's recorded outcome on the card
+SYS_STATES_MIN = 27       # of 28 frames with the reference's state
+SYS_KF_TOL = 2            # keyframes, absolute
+SYS_POINTS_REL = 0.10     # map points, relative
+SYS_CENTRE_TOL = 1e-2     # camera centre per frame (median depth is 1)
+SYS_ATE_MARGIN = 5e-3     # keyframe ATE above the reference's
 
 
 def log(msg: str):
@@ -237,7 +261,46 @@ def phase_slice(torch, fast_cuda, FusedContext, SlamConfig, fx):
         raise AssertionError(f"pose off the reference by {worst}")
     if worst["bind_eq"] < TOL_BIND or worst["inl2_rel"] > TOL_INLIERS:
         raise AssertionError(f"bindings off the reference: {worst}")
-    return {"frames": K, "fast_launches": launches, "worst": worst, "rows": rows}
+    recovery = _recovery_frame(torch, ctx, images[0], fx)
+    return {"frames": K, "fast_launches": launches, "worst": worst, "rows": rows,
+            "recovery": recovery}
+
+
+def _recovery_frame(torch, ctx, image, fx):
+    """One step from the system fixture's perturbed seed pose: pass 1 must
+    collapse, the wide recovery pass run, and the result agree with the
+    reference's outputs for that frame."""
+    sf = dict(np.load(SLAM_FIXTURE))
+    ctx.set_pose(sf["recovery_R0"], sf["recovery_t0"], velocity=(fx["vel_R0"], fx["vel_t0"]))
+    inliers = []
+    match_pass = ctx.step._match_pass
+
+    def counting(*a, **k):
+        r = match_pass(*a, **k)
+        inliers.append(int(r.res.n_inliers))
+        return r
+
+    ctx.step._match_pass = counting
+    try:
+        out = ctx.track(image)
+    finally:
+        ctx.step._match_pass = match_pass
+    stats = [int(out.n_inl2), int(out.n_inl1), int(out.n_match2), int(out.n_match1)]
+    ref = sf["recovery_out_stats"].tolist()
+    row = {
+        "pass_inliers": inliers, "stats": stats, "ref_stats": ref,
+        "dR": float(np.abs(out.R.cpu().numpy() - sf["recovery_out_R"]).max()),
+        "dt": float(np.abs(out.t.cpu().numpy() - sf["recovery_out_t"]).max()),
+        "bind_eq": float(np.mean(out.feat_bind.cpu().numpy() == sf["recovery_out_feat_bind"])),
+    }
+    log(f"[slice] recovery frame: {json.dumps(row)}")
+    if len(inliers) != 3 or not inliers[0] < 20 <= inliers[1]:
+        raise AssertionError(f"the recovery pass did not run as expected: {inliers}")
+    if max(row["dR"], row["dt"]) > TOL_POSE or row["bind_eq"] < TOL_BIND:
+        raise AssertionError(f"recovery frame off the reference: {row}")
+    if abs(stats[0] - ref[0]) > TOL_INLIERS * ref[0]:
+        raise AssertionError(f"recovery frame inliers off the reference: {row}")
+    return row
 
 
 def phase_throughput(torch, FusedContext, SlamConfig, fx, n_steps=200):
@@ -350,6 +413,193 @@ def phase_breakdown(torch, fx, FusedContext, SlamConfig):
     return {"layers_ms": parts, "profile": prof_res}
 
 
+def _percentiles(xs, unit="_ms"):
+    if not xs:
+        return None
+    return {"n": len(xs), f"p50{unit}": float(np.percentile(xs, 50)),
+            f"p95{unit}": float(np.percentile(xs, 95)), f"mean{unit}": float(np.mean(xs))}
+
+
+def _centre(P):
+    return -P[:3, :3].T @ P[:3, 3]
+
+
+def _kf_ate(slam, sf):
+    """Sim3-aligned ATE of the keyframe trajectory against ground truth."""
+    from orbslam_jpminipc_torch.io.trajectory import ate_rmse
+
+    index = {round(float(ts), 6): i for i, ts in enumerate(sf["timestamps"])}
+    kft = slam.keyframe_trajectory()
+    est = np.stack([-R.T @ t for _, R, t in kft]).astype(np.float64)
+    gi = [index[round(ts, 6)] for ts, _, _ in kft]
+    gt = np.stack([-sf["gt_R"][i].T @ sf["gt_t"][i] for i in gi]).astype(np.float64)
+    return ate_rmse(est, gt)
+
+
+def phase_system(torch, fast_cuda, smi):
+    import warnings
+
+    from orbslam_jpminipc_torch.config import SlamConfig
+    from orbslam_jpminipc_torch.frontend.tracking import TrackState
+    from orbslam_jpminipc_torch.pipeline.system import Slam
+    from orbslam_jpminipc_torch.utils import host
+    from orbslam_jpminipc_torch.utils.tracing import get_tracer
+
+    sf = dict(np.load(SLAM_FIXTURE))
+    meta = json.loads(str(sf["meta"]))
+    cfg = SlamConfig(**meta["config"])
+    images = [torch.as_tensor(im).cuda() for im in sf["images"]]
+    n = len(images)
+
+    def make():
+        slam = Slam(cfg, vocab=None, device="cuda")
+        sets = iter(torch.as_tensor(x).cuda() for x in sf["init_sets"])
+        slam.tracker.sampler = lambda mask, n_hyp: next(sets)
+        kf_events = []
+        process = slam.mapper.process
+        slam.mapper.process = lambda frame: (kf_events.append(frame.frame_id), process(frame))[1]
+        return slam, kf_events
+
+    # warm-up on a separate system (library handles, allocator, first launches)
+    slam, _ = make()
+    for i in range(4):
+        slam.process(images[i], float(sf["timestamps"][i]))
+    torch.cuda.synchronize()
+    del slam
+
+    def drive(slam, kf_events, count_syncs):
+        """Feed the frames through `Slam.process`, one synchronised call
+        each. With `count_syncs` every host synchronisation is recorded
+        (CUDA sync debug mode), which slows the calls: that pass is not
+        timed."""
+        rows = []
+        for i in range(n):
+            was = slam.tracker.state
+            fused = slam.tracker.fused_usable(slam.frame_count)
+            reads0, launches0, kf0 = host.READS, fast_cuda.LAUNCHES, len(kf_events)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.synchronize()
+                if count_syncs:
+                    torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    state, frame = slam.process(images[i], float(sf["timestamps"][i]))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            pose = np.full((3, 4), np.nan, np.float32)
+            if frame is not None and frame.R is not None:
+                pose[:, :3], pose[:, 3] = frame.R, frame.t
+            ref = sf["poses"][i]
+            both = np.isfinite(pose).all() and np.isfinite(ref).all()
+            kind = ("init" if was != TrackState.WORKING
+                    else "keyframe" if len(kf_events) > kf0 else "other")
+            rows.append({
+                "frame": i, "kind": kind, "ms": ms, "state": state.value,
+                "ref_state": int(sf["states"][i]), "n_inliers": slam.tracker.n_inliers,
+                "ref_n_inliers": int(sf["n_inliers"][i]),
+                "n_keyframes": slam.n_keyframes, "n_points": slam.n_points,
+                "centre": _centre(pose).tolist() if np.isfinite(pose).all() else None,
+                "dcentre": float(np.abs(_centre(pose) - _centre(ref)).max()) if both else None,
+                "has_pose": bool(np.isfinite(pose).all()), "ref_has_pose": bool(np.isfinite(ref).all()),
+                "fetches": host.READS - reads0, "syncs": syncs if count_syncs else None,
+                "fast_launches": fast_cuda.LAUNCHES - launches0, "fused": fused,
+            })
+        slam.finish()
+        torch.cuda.synchronize()
+        return rows
+
+    # the main path: timed, with the kernel's launch count from 0
+    slam, kf_events = make()
+    tracer = get_tracer()
+    tracer.reset()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fast_cuda.LAUNCHES = 0
+    rows = drive(slam, kf_events, count_syncs=False)
+    launches = fast_cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    stages = tracer.summary()
+    for r in rows:
+        log(f"[system] frame {r['frame']} {r['kind']}: {TrackState(r['state']).name} (ref "
+            f"{TrackState(r['ref_state']).name}) {r['ms']:.1f} ms, inl {r['n_inliers']} "
+            f"(ref {r['ref_n_inliers']}), kf {r['n_keyframes']}, pts {r['n_points']}, "
+            f"dcentre {r['dcentre']}, fetches {r['fetches']}, FAST {r['fast_launches']}")
+
+    # a second, untimed system over the same frames counts the host
+    # synchronisations per frame
+    slam2, kf_events2 = make()
+    rows2 = drive(slam2, kf_events2, count_syncs=True)
+    del slam2
+    for r, r2 in zip(rows, rows2):
+        r["syncs"] = r2["syncs"]
+    rerun = {
+        "states_equal": sum(a["state"] == b["state"] for a, b in zip(rows, rows2)),
+        "max_dcentre": max((float(np.abs(np.subtract(a["centre"], b["centre"])).max())
+                            for a, b in zip(rows, rows2)
+                            if a["centre"] is not None and b["centre"] is not None),
+                           default=None),
+    }
+
+    ate = _kf_ate(slam, sf)
+    ref_ate = float(sf["kf_ate"])
+    n_kf, ref_kf = slam.n_keyframes, int(sf["n_keyframes"])
+    n_pts, ref_pts = slam.n_points, int(sf["n_points"])
+    states_eq = sum(r["state"] == r["ref_state"] for r in rows)
+    pose_mismatch = [r["frame"] for r in rows if r["has_pose"] != r["ref_has_pose"]]
+    dc = [r["dcentre"] for r in rows if r["dcentre"] is not None]
+    groups = {k: _percentiles([r["ms"] for r in rows if r["kind"] == k])
+              for k in ("init", "keyframe", "other")}
+    res = {
+        "card": smi, "frames": n, "states_equal": states_eq,
+        "n_keyframes": n_kf, "ref_n_keyframes": ref_kf,
+        "n_points": n_pts, "ref_n_points": ref_pts,
+        "max_dcentre": max(dc) if dc else None, "kf_ate": ate, "ref_kf_ate": ref_ate,
+        "ms_per_frame": groups,
+        "syncs_per_frame": _percentiles([r["syncs"] for r in rows], unit=""),
+        "fetches_per_frame": _percentiles([r["fetches"] for r in rows], unit=""),
+        "fast_launches": launches, "peak_mem_bytes": int(peak),
+        "stages": stages, "rerun_vs_main": rerun, "rows": rows,
+    }
+    for k, g in groups.items():
+        log(f"[system] {smi}: {k} frames ms per process: {json.dumps(g)}")
+    log(f"[system] {smi}: host synchronisations per frame (sync debug mode, untimed "
+        f"second run) "
+        f"{json.dumps(res['syncs_per_frame'])}; batched reads per frame "
+        f"{json.dumps(res['fetches_per_frame'])}")
+    log(f"[system] {smi}: peak device memory {peak} bytes")
+    log(f"[system] {smi}: stage summary {json.dumps(res['stages'])}")
+    log(f"[system] outcome: states equal {states_eq}/{n}, keyframes {n_kf} (ref {ref_kf}), "
+        f"points {n_pts} (ref {ref_pts}), max centre diff {res['max_dcentre']}, "
+        f"kf ATE {ate:.6f} (ref {ref_ate:.6f}), FAST launches {launches}")
+    log(f"[system] second run vs the first: states equal {rerun['states_equal']}/{n}, "
+        f"max centre diff {rerun['max_dcentre']}")
+
+    if states_eq < SYS_STATES_MIN:
+        raise AssertionError(f"states equal on only {states_eq}/{n} frames")
+    if pose_mismatch:
+        raise AssertionError(f"pose present/absent differs on frames {pose_mismatch}")
+    if abs(n_kf - ref_kf) > SYS_KF_TOL:
+        raise AssertionError(f"{n_kf} keyframes, reference {ref_kf}")
+    if abs(n_pts - ref_pts) > SYS_POINTS_REL * ref_pts:
+        raise AssertionError(f"{n_pts} points, reference {ref_pts}")
+    if not dc or max(dc) > SYS_CENTRE_TOL:
+        raise AssertionError(f"camera centres off the reference by {res['max_dcentre']}")
+    if not np.isfinite(ate) or ate > ref_ate + SYS_ATE_MARGIN:
+        raise AssertionError(f"keyframe ATE {ate} above the reference's {ref_ate} + {SYS_ATE_MARGIN}")
+    # both frame paths extract through the kernel: build_frame on the
+    # initialization frames, the fused step on every tracked frame
+    no_fast = [r["frame"] for r in rows
+               if (r["kind"] == "init" or r["fused"]) and r["fast_launches"] != 8]
+    if no_fast or not any(r["fused"] for r in rows):
+        raise AssertionError(f"FAST kernel not launched 8 times on frames {no_fast}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -372,6 +622,7 @@ def main() -> int:
     report["device_busy_share"] = busy
     log(f"[breakdown] device busy share: {busy:.3f} (profiled kernel time per "
         f"step over the unprofiled mean step time)")
+    report["system"] = phase_system(torch, fast_cuda, report["device"])
 
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -383,7 +634,9 @@ def main() -> int:
         "route": "cuda",
         "source": "orbslam_jpminipc_torch/csrc/fast.cu",
         "replaces": "orbslam_jpminipc_tpu/ops/fast_pallas.py:82",
-        "launches": report["slice"]["fast_launches"],
+        # the system phase's count: Slam.process over the 28 frames
+        "launches": report["system"]["fast_launches"],
+        "launches_slice_phase": report["slice"]["fast_launches"],
         "max_abs_err": k["max_abs_err"],
         # per frame: the sum over the 8 pyramid-level shapes
         "ms": sum(r["ms"] for r in k["per_level"]),

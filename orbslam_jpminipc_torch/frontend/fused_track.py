@@ -72,6 +72,23 @@ class FusedOut(NamedTuple):
     xy_un: torch.Tensor      # (N, 2) undistorted keypoints
 
 
+def pack_slice(xyz, normal, min_dist, max_dist, desc, n_obs, n_valid,
+               m=MAX_SLICE) -> np.ndarray:
+    """Host-side packing of a local-map slice into the reference's (M, 17)
+    float32 layout. Rows >= n_valid are empty (max_dist = 0). Column 16 is
+    the observation count: pass 1 anchors only on established (>= 3 KF)
+    points."""
+    buf = np.zeros((m, 17), np.float32)
+    n = min(n_valid, m)
+    buf[:n, 0:3] = xyz[:n]
+    buf[:n, 3:6] = normal[:n]
+    buf[:n, 6] = min_dist[:n]
+    buf[:n, 7] = np.maximum(max_dist[:n], 1e-6)
+    buf[:n, 8:16] = np.ascontiguousarray(desc[:n]).view(np.float32)
+    buf[:n, 16] = n_obs[:n]
+    return buf
+
+
 def slice_from_packed(buf: np.ndarray, device) -> MapSlice:
     """The reference's packed (M, 17) float32 slice (`pack_slice`:
     xyz 0:3, normal 3:6, min 6, max 7, descriptor bytes bitcast into 8:16,
@@ -230,6 +247,7 @@ class FusedContext:
 
     def __init__(self, cfg: SlamConfig, n_map: int = MAX_SLICE, device="cpu"):
         self.cfg = cfg
+        self.n_map = n_map
         self.device = torch.device(device)
         self.step = FusedStep(cfg, n_map).to(self.device)
         self.R = None
@@ -240,6 +258,11 @@ class FusedContext:
         self._false = torch.tensor(False, device=self.device)
         self.has_vel = self._false
         self.slice = None
+        # host metadata of the slice rows
+        self.slice_ids = np.zeros(0, np.int64)   # map-point slot per row
+        self.slice_gen = np.zeros(0, np.int32)   # slot generation at refresh
+        # bumped whenever the host overwrites the device-resident pose
+        self.epoch = 0
 
     @property
     def ready(self) -> bool:
@@ -247,14 +270,34 @@ class FusedContext:
 
     def set_pose(self, R, t, velocity=None):
         """(Re)enter the tracking step from a host pose (and velocity)."""
+        self.epoch += 1
         self.R, self.t = pose_from_numpy(R, t, self.device)
         if velocity is not None:
             self.vel_R, self.vel_t = pose_from_numpy(*velocity, self.device)
         self.has_vel = self._true if velocity is not None else self._false
 
+    def clear_velocity(self):
+        self.has_vel = self._false
+
     def set_slice(self, packed: np.ndarray):
         """Upload a packed (M, 17) local-map slice."""
         self.slice = slice_from_packed(packed, self.device)
+
+    def refresh_slice(self, st, pts: np.ndarray):
+        """Build the slice of map points `pts` from the host map (one
+        upload)."""
+        pts = pts[: self.n_map]
+        n_obs = (st.mp_obs_kf[pts] >= 0).sum(axis=1).astype(np.float32)
+        self.set_slice(pack_slice(
+            st.mp_xyz[pts], st.mp_normal[pts], st.mp_min_dist[pts],
+            st.mp_max_dist[pts], st.mp_desc[pts], n_obs, len(pts), self.n_map))
+        self.slice_ids = pts.astype(np.int64)
+        self.slice_gen = st.mp_gen[pts].copy()
+
+    def invalidate(self):
+        self.epoch += 1
+        self.R = None
+        self.slice = None
 
     @torch.no_grad()
     def track(self, image_u8) -> FusedOut:

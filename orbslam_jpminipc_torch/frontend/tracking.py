@@ -1,0 +1,646 @@
+"""Tracking: the per-frame camera pose state machine (counterpart of
+orbslam_jpminipc_tpu/frontend/tracking.py).
+
+src/Tracking.cc: the FSM {NO_IMAGES_YET, NOT_INITIALIZED, INITIALIZING,
+WORKING, LOST} (Tracking.h:57-64), motion-model tracking
+(TrackWithMotionModel :594-628) with the window-search fallback
+(TrackPreviousFrame :526-592), local-map tracking (TrackLocalMap :630-662),
+the keyframe decision (NeedNewKeyFrame :665-703) and the motion-model
+velocity update (:297-310).
+
+Host control flow; every heavy step (matching, frustum checks, pose
+optimization) is one torch program on the tracker's device whose results
+come back in one host read. The tracker mutates only its own Frame
+bookkeeping and the per-point visible/found statistics; map growth belongs
+to local mapping. The steady WORKING state runs the fused step
+(fused_track.py) synchronously.
+
+Relocalization needs a keyframe database (place recognition), which is
+not ported yet: without one the reference's `_relocalize` returns False,
+and so does this one, so LOST is terminal. Mapping runs synchronously
+after the frame that made a keyframe, so the mapper is always idle when
+tracking asks.
+"""
+from __future__ import annotations
+
+import enum
+
+import numpy as np
+import torch
+
+from ..config import SlamConfig
+from ..map.map_state import MapState
+from ..ops import matching
+from ..solvers import initializer, pose_opt
+from ..utils.host import fetch
+from ..utils.tracing import get_tracer
+from . import fused_track
+from .frame import Frame
+
+MAX_LOCAL_POINTS = fused_track.MAX_SLICE
+
+
+class TrackState(enum.Enum):
+    NO_IMAGES_YET = 0
+    NOT_INITIALIZED = 1
+    INITIALIZING = 2
+    WORKING = 3
+    LOST = 4
+
+
+def _scatter_bindings(idx, mask, n: int) -> torch.Tensor:
+    """Per frame feature, the query row matched to it (-1 none). Unmatched
+    rows go to a sink row n (the reference's out-of-range dropped index);
+    enforce_unique leaves at most one matched row per feature."""
+    nq = idx.shape[0]
+    target = torch.where(mask, idx.to(torch.int64), n)
+    feat_q = torch.full((n + 1,), -1, dtype=torch.int32, device=idx.device)
+    feat_q.scatter_(0, target, torch.arange(nq, dtype=torch.int32, device=idx.device))
+    return feat_q[:n]
+
+
+def _init_attempt(sampler, d0, xy0, a0, v0, lvl0, d1, xy1un, a1, lvl1, v1, K4):
+    """One initialization attempt as ONE program: level-0 window match
+    (SearchForInitialization, win=100, ORBmatcher.cc:598-713) + the batched
+    dual-model H||F RANSAC (Initializer::Initialize) on minimal sets drawn
+    by `sampler(mask, n_hyp)`."""
+    m = matching.window_search(
+        d0, xy0, a0, v0, d1, xy1un, a1, lvl1, v1,
+        window_px=100.0, max_dist=50, nn_ratio=0.9,
+        min_level=0, max_level=0, check_rotation=True,
+    )
+    mask = m.mask & (lvl0 == 0)
+    uv2 = xy1un[m.idx.to(torch.int64)]
+    res = initializer.initialize(sampler(mask, 200), xy0, uv2, mask, K4)
+    return torch.sum(v1), m.idx, mask, res
+
+
+def _bind_and_optimize(idx, mask, xw_q, R0, t0, f_xy, w, K4, n_rounds=4):
+    """Scatter query->feature matches to per-feature bindings and run the
+    4-round pose optimizer. Returns (feat_q, res)."""
+    n = f_xy.shape[0]
+    nq = idx.shape[0]
+    feat_q = _scatter_bindings(idx, mask, n)
+    has = feat_q >= 0
+    xw_f = xw_q[torch.clamp(feat_q, 0, nq - 1).to(torch.int64)]
+    res = pose_opt.optimize_pose(R0, t0, xw_f, f_xy, w, has, K4, n_rounds=n_rounds)
+    return feat_q, res
+
+
+def _track_frame_prog(desc_q, uv_proj, lf_xy, lf_angle, lf_level, valid_q,
+                      xw_q, f_desc, f_xy, f_angle, f_level, f_valid, w,
+                      R0, t0, K4, scale_factors):
+    """TrackWithMotionModel + the TrackPreviousFrame fallback as ONE
+    program: projection search under the predicted pose, 200 px window
+    search fallback, binding scatter, 4-round pose optimization
+    (Tracking.cc:526-628). Both searches run; the mask count picks one."""
+    m1 = matching.search_by_projection(
+        desc_q, uv_proj, lf_level, valid_q,
+        f_desc, f_xy, f_level, f_valid, scale_factors,
+        radius=15.0, max_dist=100, nn_ratio=0.9, level_window=(-1, 1))
+    m2 = matching.window_search(
+        desc_q, lf_xy, lf_angle, valid_q,
+        f_desc, f_xy, f_angle, f_level, f_valid,
+        window_px=200.0, max_dist=100, nn_ratio=0.9,
+        min_level=0, max_level=scale_factors.shape[0] - 1,
+        check_rotation=True)
+    use2 = torch.sum(m1.mask) < 20
+    idx = torch.where(use2, m2.idx, m1.idx)
+    mask = torch.where(use2, m2.mask, m1.mask)
+    feat_q, res = _bind_and_optimize(idx, mask, xw_q, R0, t0, f_xy, w, K4)
+    return idx, mask, use2, feat_q, res
+
+
+def _track_local_map_prog(mp_xyz, mp_normal, mp_mind, mp_maxd, mp_desc,
+                          q_valid, already, f_desc, f_xy, f_level, f_valid,
+                          prev_xw, prev_has, w, R, t, K4, bounds,
+                          scale_factors, radius_mult):
+    """TrackLocalMap's frustum gate + projection search + pose
+    re-optimization over the MERGED binding set (prior frame-to-frame
+    matches + new local-map matches) as ONE program (Tracking.cc:630-773)."""
+    from ..geometry.camera import frustum_check
+
+    n_levels = scale_factors.shape[0]
+    ok, uv, _, view_cos, dist = frustum_check(
+        mp_xyz, R, t, K4, bounds, mp_normal, mp_mind * 0.8, mp_maxd * 1.2)
+    visible = ok & q_valid
+    ratio = torch.clamp(mp_maxd, min=1e-9) / torch.clamp(dist, min=1e-9)
+    pred = torch.clamp(
+        torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / torch.log(scale_factors[1])),
+        0, n_levels - 1).to(torch.int32)
+    th = torch.where(view_cos > 0.998, 2.5, 4.0) * radius_mult
+    m = matching.search_by_projection(
+        mp_desc, uv, pred, visible & ~already,
+        f_desc, f_xy, f_level, f_valid & ~prev_has, scale_factors,
+        radius=th, max_dist=100, nn_ratio=0.8, level_window=(-1, 1))
+    n = f_xy.shape[0]
+    nq = m.idx.shape[0]
+    feat_q = _scatter_bindings(m.idx, m.mask, n)
+    new_has = feat_q >= 0
+    has = prev_has | new_has
+    xw_f = torch.where(new_has[:, None],
+                       mp_xyz[torch.clamp(feat_q, 0, nq - 1).to(torch.int64)], prev_xw)
+    res = pose_opt.optimize_pose(R, t, xw_f, f_xy, w, has, K4)
+    return visible, m.idx, m.mask, feat_q, has, res
+
+
+class Tracker:
+    def __init__(self, cfg: SlamConfig, state: MapState, device="cpu"):
+        self.cfg = cfg
+        self.map = state
+        self.device = torch.device(device)
+        self.state = TrackState.NO_IMAGES_YET
+        self.velocity: tuple[np.ndarray, np.ndarray] | None = None
+        self.last_frame: Frame | None = None
+        self.init_frame: Frame | None = None
+        self.ref_kf: int = -1
+        self.last_kf_frame_id: int = 0
+        self.last_reloc_frame_id: int = -(10 ** 9)
+        self.n_inliers: int = 0
+        # RANSAC minimal sets: sampler(mask, n_hyp) -> (n_hyp, 8) indices.
+        # The default draws from a generator seeded from cfg.seed; a test
+        # may replace it to replay another implementation's sets.
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.sampler = lambda mask, n_hyp: initializer.sample_minimal_sets(
+            self.generator, mask, n_hyp)
+        self.bounds = self._compute_bounds()
+        self.K4 = self._put(cfg.K4)
+        self.scale_factors = self._put(cfg.scale_factors)
+        self.fused = (fused_track.FusedContext(cfg, device=self.device)
+                      if cfg.fused_tracking else None)
+        # device mirror of the map (owned by the LocalMapper, wired by the
+        # System): slice refreshes gather on the device
+        self.dmap = None
+        # callbacks wired by the System
+        self.on_initialized = None   # fn(frame1, frame2, matches, init_result)
+        self.on_new_keyframe = None  # fn(frame)
+
+    def _put(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _compute_bounds(self):
+        """Undistorted image bounds (Frame.cc:321-349)."""
+        cfg = self.cfg
+        corners = np.array(
+            [[0, 0], [cfg.width, 0], [0, cfg.height], [cfg.width, cfg.height]], np.float32)
+        if np.any(cfg.dist4 != 0):
+            from ..geometry.camera import undistort_points
+
+            und = undistort_points(torch.from_numpy(corners), torch.from_numpy(cfg.K4),
+                                   torch.from_numpy(cfg.dist4)).numpy()
+        else:
+            und = corners
+        return np.array([und[:, 0].min(), und[:, 0].max(), und[:, 1].min(), und[:, 1].max()],
+                        np.float32)
+
+    def _feat(self, frame: Frame, name: str) -> torch.Tensor:
+        return frame.feature_tensor(name, self.device)
+
+    # ------------------------------------------------------------------
+    # main entry
+    # ------------------------------------------------------------------
+
+    def process_frame(self, frame: Frame) -> TrackState:
+        """One tracking step on the host path. Returns the post-step state;
+        on success frame.R/frame.t hold the world->camera pose."""
+        if self.state == TrackState.NO_IMAGES_YET:
+            self.state = TrackState.NOT_INITIALIZED
+
+        if self.state == TrackState.NOT_INITIALIZED:
+            self._first_initialization(frame)
+        elif self.state == TrackState.INITIALIZING:
+            self._try_initialize(frame)
+        else:
+            ok = False
+            if self.state == TrackState.WORKING:
+                ok = self._track_frame(frame)
+                if ok:
+                    ok = self._track_local_map(frame)
+            elif self.state == TrackState.LOST:
+                ok = self._relocalize(frame)
+                if ok:
+                    ok = self._track_local_map(frame)
+
+            if ok:
+                self.state = TrackState.WORKING
+                if self._need_new_keyframe(frame):
+                    self._create_keyframe(frame)
+                # motion model velocity (Tracking.cc:297-310), host numpy
+                if self.last_frame is not None and self.last_frame.R is not None:
+                    Rl, tl = self.last_frame.R, self.last_frame.t
+                    Rv = frame.R @ Rl.T
+                    self.velocity = (Rv, frame.t - Rv @ tl)
+            else:
+                self.state = TrackState.LOST
+                self.velocity = None
+                # a failed frame keeps no pose (Tracking.cc:244-311)
+                frame.R = None
+                frame.t = None
+
+        self.last_frame = frame
+        return self.state
+
+    # ------------------------------------------------------------------
+    # the fused WORKING path (fused_track.py), synchronous
+    # ------------------------------------------------------------------
+
+    def fused_usable(self, frame_id: int) -> bool:
+        """The fused path covers the steady WORKING state; the wide-radius
+        post-relocalization window (Tracking.cc:646) stays on the host path."""
+        return (
+            self.fused is not None
+            and self.state == TrackState.WORKING
+            and self.fused.ready
+            and frame_id >= self.last_reloc_frame_id + 2
+        )
+
+    def slice_points(self) -> np.ndarray:
+        """Local-map point set around the reference KF: the points observed
+        by the covisible neighborhood (UpdateReference*, Tracking.cc:775-860),
+        prioritized by (seen-by-ref-kf, observation count) when over the
+        slice capacity."""
+        st = self.map
+        k = self.ref_kf
+        if k < 0 or not st.kf_valid[k]:
+            return np.zeros(0, np.int64)
+        covis = st.covisibility()
+        row = covis[k].copy()
+        row[~st.kf_valid] = 0
+        row[k] = 0
+        nb = np.nonzero(row > 0)[0]
+        nb = nb[np.argsort(-row[nb])][:79]
+        local = np.concatenate([[k], nb]).astype(np.int64)
+        pts = np.unique(st.kf_point[local])
+        pts = pts[pts >= 0]
+        pts = pts[st.mp_valid[pts]]
+        if len(pts) > MAX_LOCAL_POINTS:
+            ref_pts = st.kf_point[k]
+            in_ref = np.isin(pts, ref_pts[ref_pts >= 0])
+            nobs = (st.mp_obs_kf[pts] >= 0).sum(axis=1)
+            order = np.lexsort((-nobs, ~in_ref))
+            pts = np.sort(pts[order[:MAX_LOCAL_POINTS]])
+        return pts.astype(np.int64)
+
+    def refresh_fused_slice(self):
+        if self.fused is None:
+            return
+        # skip when neither the mirror nor the reference KF changed since
+        # the last refresh: the slice would be identical
+        key = (self.dmap.version if self.dmap is not None else -1,
+               self.ref_kf, self.map.next_kf_id)
+        if getattr(self, "_slice_key", None) == key:
+            return
+        self._slice_key = key
+        pts = self.slice_points()
+        if len(pts) == 0:
+            return
+        if self.dmap is None:
+            self.fused.refresh_slice(self.map, pts)
+            return
+        from ..map.device_map import slice_kernel
+
+        st = self.map
+        M = MAX_LOCAL_POINTS
+        pts = pts[:M]
+        n = len(pts)
+        ids = np.zeros(M, np.int64)
+        ids[:n] = pts
+        rv = np.zeros(M, bool)
+        rv[:n] = True
+        n_obs = np.zeros(M, np.float32)
+        n_obs[:n] = (st.mp_obs_kf[pts] >= 0).sum(axis=1)
+        self.fused.slice = slice_kernel(self.dmap, ids, rv, n_obs)
+        self.fused.slice_ids = pts.astype(np.int64)
+        self.fused.slice_gen = st.mp_gen[pts].copy()
+
+    def enter_fused(self, frame: Frame):
+        """(Re)arm the fused path from host state after init/fallback: a pose
+        upload + a slice refresh if none is resident."""
+        if self.fused is None or frame.R is None:
+            return
+        self.fused.set_pose(frame.R, frame.t, velocity=self.velocity)
+        if self.fused.slice is None:
+            self.refresh_fused_slice()
+
+    def fused_complete(self, frame_id: int, timestamp: float, out: fused_track.FusedOut,
+                       slice_ids: np.ndarray, slice_gen: np.ndarray):
+        """Host bookkeeping of one fused step: pose writeback, visible/found
+        statistics, match bindings, FSM transition, keyframe decision. The
+        step's results come back in one host read."""
+        st = self.map
+        R, t, stats, bind, flags = fetch(
+            out.R, out.t,
+            torch.stack([out.n_inl2, out.n_inl1, out.n_match2, out.n_match1]),
+            out.feat_bind, out.flags)
+        n_feat = int(bind.shape[0])
+        dev = {"xy": out.feats.xy, "xy_un": out.xy_un, "level": out.feats.level,
+               "angle": out.feats.angle, "response": out.feats.response,
+               "desc": out.feats.desc, "valid": out.feats.valid}
+        frame = Frame(frame_id, timestamp, n_feat=n_feat, dev=dev)
+        frame.R = R.astype(np.float32)
+        frame.t = t.astype(np.float32)
+        self.n_inliers = int(stats[0])
+
+        ids = slice_ids
+        n_ids = len(ids)
+        if n_ids:
+            live = st.mp_valid[ids] & (st.mp_gen[ids] == slice_gen)
+            fl = flags[:n_ids]
+            vis = ((fl & fused_track.FLAG_VISIBLE) > 0) & live
+            fnd = ((fl & fused_track.FLAG_FOUND) > 0) & live
+            st.mp_visible[ids[vis]] += 1
+            st.mp_found[ids[fnd]] += 1
+
+            has = bind >= 0
+            slot = np.where(has, bind & 0xFFFF, 0)
+            inl = bind >= fused_track.BIND_INLIER
+            ok_slot = has & (slot < n_ids) & live[np.minimum(slot, n_ids - 1)]
+            frame.point[ok_slot] = ids[slot[ok_slot]]
+            frame.point_gen[ok_slot] = st.mp_gen[ids[slot[ok_slot]]]
+            frame.outlier[:] = ok_slot & ~inl
+
+        fell_back = False
+        ok = self.n_inliers >= 30
+        if not ok:
+            # host fallback on this frame's (lazily copied) features
+            fell_back = True
+            ok = self._track_frame(frame)
+            if ok:
+                ok = self._track_local_map(frame)
+        else:
+            # reference-KF vote (UpdateReferenceKeyFrames, Tracking.cc:804-860)
+            pts = frame.point[(frame.point >= 0) & ~frame.outlier]
+            if len(pts):
+                obs = st.mp_obs_kf[pts]
+                votes = np.bincount(obs[obs >= 0], minlength=st.max_kf)
+                if votes.max() > 0:
+                    self.ref_kf = int(votes.argmax())
+
+        if ok:
+            self.state = TrackState.WORKING
+            if self._need_new_keyframe(frame):
+                self._create_keyframe(frame)
+            if self.last_frame is not None and self.last_frame.R is not None:
+                Rl, tl = self.last_frame.R, self.last_frame.t
+                Rv = frame.R @ Rl.T
+                self.velocity = (Rv, frame.t - Rv @ tl)
+            if fell_back:
+                self.fused.set_pose(frame.R, frame.t, velocity=self.velocity)
+        else:
+            self.state = TrackState.LOST
+            self.velocity = None
+            self.fused.invalidate()
+            frame.R = None  # see process_frame: no garbage pose survives
+            frame.t = None
+        self.last_frame = frame
+        return self.state, frame
+
+    def process_fused(self, image, frame_id: int, timestamp: float):
+        """One fused step and its host bookkeeping, back to back."""
+        with get_tracer().stage("track_step"):
+            out = self.fused.track(image)
+        return self.fused_complete(frame_id, timestamp, out,
+                                   self.fused.slice_ids, self.fused.slice_gen)
+
+    # ------------------------------------------------------------------
+    # initialization (Tracking.cc:360-420 + CreateInitialMap :422-524)
+    # ------------------------------------------------------------------
+
+    def _first_initialization(self, frame: Frame):
+        if frame.n_valid > 100:
+            self.init_frame = frame
+            self.state = TrackState.INITIALIZING
+
+    def _try_initialize(self, frame: Frame):
+        f0 = self.init_frame
+        # ONE program + ONE host read per attempt
+        n1, idx, mask, res = _init_attempt(
+            self.sampler,
+            self._feat(f0, "desc"), self._feat(f0, "xy_un"),
+            self._feat(f0, "angle"), self._feat(f0, "valid"),
+            self._feat(f0, "level"),
+            self._feat(frame, "desc"), self._feat(frame, "xy_un"),
+            self._feat(frame, "angle"), self._feat(frame, "level"),
+            self._feat(frame, "valid"), self.K4,
+        )
+        host = fetch(n1, idx, mask, *res)
+        n1, idx, mask = host[:3]
+        res = initializer.InitResult(*host[3:])
+        if int(n1) <= 100:
+            self.state = TrackState.NOT_INITIALIZED
+            return
+        if int(mask.sum()) < 100:
+            self.state = TrackState.NOT_INITIALIZED
+            return
+        if not bool(res.success):
+            return  # keep trying with the same init frame
+        if self.on_initialized is not None:
+            self.on_initialized(f0, frame, (idx, mask), res)
+
+    # ------------------------------------------------------------------
+    # frame-to-frame tracking
+    # ------------------------------------------------------------------
+
+    def _predict_pose(self):
+        lf = self.last_frame
+        if self.velocity is not None and self.cfg.use_motion_model:
+            Rv, tv = self.velocity
+            return Rv @ lf.R, Rv @ lf.t + tv
+        return lf.R.copy(), lf.t.copy()
+
+    def _track_frame(self, frame: Frame) -> bool:
+        """Motion-model projection search + window-search fallback + pose
+        optimization (TrackWithMotionModel :594-628 / TrackPreviousFrame
+        :526-592): ONE program, ONE host read."""
+        lf = self.last_frame
+        if lf is None or lf.R is None:
+            return False
+        R0, t0 = self._predict_pose()
+
+        lp = lf.point.copy()
+        lp[lf.outlier] = -1
+        has_pt = lp >= 0
+        mp = np.clip(lp, 0, self.map.max_mp - 1)
+        # generation check: a culled and recycled slot must not bind
+        valid_q = has_pt & self.map.mp_valid[mp] & (self.map.mp_gen[mp] == lf.point_gen)
+        xw = self.map.mp_xyz[mp]
+        desc_q = self.map.mp_desc[mp]
+
+        # project with the predicted pose
+        xc = xw @ R0.T + t0
+        z = xc[:, 2]
+        uv_proj = np.stack(
+            [
+                self.cfg.fx * xc[:, 0] / np.maximum(z, 1e-9) + self.cfg.cx,
+                self.cfg.fy * xc[:, 1] / np.maximum(z, 1e-9) + self.cfg.cy,
+            ],
+            axis=1,
+        ).astype(np.float32)
+        valid_q &= z > 0
+
+        w = self.cfg.inv_sigma2[np.clip(frame.level, 0, self.cfg.n_levels - 1)]
+        p = self._put
+        _idx, mmask, _use2, feat_q, res = _track_frame_prog(
+            p(desc_q), p(uv_proj), p(lf.xy_un), p(lf.angle), p(lf.level), p(valid_q),
+            p(xw.astype(np.float32)),
+            self._feat(frame, "desc"), self._feat(frame, "xy_un"),
+            self._feat(frame, "angle"), self._feat(frame, "level"),
+            self._feat(frame, "valid"),
+            p(w.astype(np.float32)),
+            p(np.asarray(R0, np.float32)), p(np.asarray(t0, np.float32)), self.K4,
+            self.scale_factors,
+        )
+        mmask, feat_q, R, t, inliers, n_inl = fetch(
+            mmask, feat_q, res.R, res.t, res.inliers, res.n_inliers)
+        if mmask.sum() < 20:
+            return False
+        # bindings from the program's feat_q: the host table is the one the
+        # optimizer scored
+        has = feat_q >= 0
+        fq = np.clip(feat_q, 0, len(lp) - 1)
+        frame.point[:] = -1
+        frame.point[has] = lp[fq[has]]
+        frame.point_gen[has] = self.map.mp_gen[lp[fq[has]]]
+        frame.outlier = has & ~inliers
+        frame.R = R
+        frame.t = t
+        self.n_inliers = int(n_inl)
+        return self.n_inliers >= 10
+
+    # ------------------------------------------------------------------
+    # local map tracking (TrackLocalMap :630-662)
+    # ------------------------------------------------------------------
+
+    def _local_keyframes(self, frame: Frame) -> np.ndarray:
+        """K1 = KFs sharing points with the frame; K2 = their top covisible
+        neighbors (UpdateReferenceKeyFrames, Tracking.cc:804-860)."""
+        has = (frame.point >= 0) & ~frame.outlier
+        pts = frame.point[has]
+        obs = self.map.mp_obs_kf[pts]  # (n, MAX_OBS)
+        votes = np.bincount(obs[obs >= 0], minlength=self.map.max_kf)
+        k1 = np.nonzero(votes)[0]
+        if len(k1) == 0:
+            return k1
+        self.ref_kf = int(votes.argmax())
+        covis = self.map.covisibility()
+        k2 = set(k1.tolist())
+        for k in k1:
+            row = covis[k].copy()
+            row[~self.map.kf_valid] = 0
+            row[k] = 0
+            top = np.argsort(-row)[:10]
+            k2.update(int(x) for x in top if row[x] > 0)
+            parent = self.map.kf_parent[k]
+            if parent >= 0:
+                k2.add(int(parent))
+            if len(k2) > 80:
+                break
+        return np.array(sorted(k2), np.int64)
+
+    def _track_local_map(self, frame: Frame) -> bool:
+        """Frustum gate + projection search + pose re-optimization over the
+        local-map points (TrackLocalMap :630-773): ONE program, ONE read."""
+        local_kfs = self._local_keyframes(frame)
+        if len(local_kfs) == 0:
+            return False
+        # local points (UpdateReferencePoints :775-802)
+        pts = np.unique(self.map.kf_point[local_kfs])
+        pts = pts[pts >= 0]
+        pts = pts[self.map.mp_valid[pts]]
+        if len(pts) == 0:
+            return False
+        if len(pts) > MAX_LOCAL_POINTS:
+            pts = pts[:MAX_LOCAL_POINTS]
+        pad = MAX_LOCAL_POINTS - len(pts)
+        pts_pad = np.concatenate([pts, np.zeros(pad, np.int64)])
+        pvalid = np.concatenate([np.ones(len(pts), bool), np.zeros(pad, bool)])
+
+        # wider search right after relocalization (Tracking.cc:646)
+        mult = 5.0 if frame.frame_id < self.last_reloc_frame_id + 2 else 1.0
+        already = np.isin(pts_pad, frame.point[frame.point >= 0])
+        w = self.cfg.inv_sigma2[np.clip(frame.level, 0, self.cfg.n_levels - 1)]
+        # the program optimizes the UNION of the prior frame-to-frame
+        # bindings (prev_xw/prev_has) and the new local-map matches
+        lp = frame.point.copy()
+        lp[frame.outlier] = -1
+        prev_has = lp >= 0
+        prev_xw = self.map.mp_xyz[np.clip(lp, 0, self.map.max_mp - 1)]
+        p = self._put
+        maxd = self.map.mp_max_dist[pts_pad]
+        visible, _idx, _mask, feat_q, has, res = _track_local_map_prog(
+            p(self.map.mp_xyz[pts_pad]), p(self.map.mp_normal[pts_pad]),
+            p(self.map.mp_min_dist[pts_pad]),
+            p(np.where(np.isfinite(maxd), maxd, 0.0).astype(np.float32)),
+            p(self.map.mp_desc[pts_pad]),
+            p(pvalid), p(already),
+            self._feat(frame, "desc"), self._feat(frame, "xy_un"),
+            self._feat(frame, "level"), self._feat(frame, "valid"),
+            p(prev_xw), p(prev_has), p(w.astype(np.float32)),
+            p(np.asarray(frame.R, np.float32)), p(np.asarray(frame.t, np.float32)), self.K4,
+            p(self.bounds), self.scale_factors,
+            torch.tensor(mult, dtype=torch.float32, device=self.device),
+        )
+        visible, feat_q, has, R, t, inliers, n_inl = fetch(
+            visible, feat_q, has, res.R, res.t, res.inliers, res.n_inliers)
+        visible = visible & pvalid
+        # visibility statistics (Frame::isInFrustum -> IncreaseVisible)
+        self.map.mp_visible[pts_pad[visible]] += 1
+        # rebuild bindings from the PROGRAM's own feat_q, so frame.point is
+        # exactly the set the pose optimizer saw
+        new_has = feat_q >= 0
+        fq = np.clip(feat_q, 0, MAX_LOCAL_POINTS - 1)
+        frame.point = np.where(
+            new_has, pts_pad[fq], np.where(prev_has, lp, -1)).astype(np.int32)
+        frame.point_gen = np.where(
+            new_has, self.map.mp_gen[pts_pad[fq]], frame.point_gen).astype(np.int32)
+        frame.outlier = has & ~inliers
+        frame.R = R
+        frame.t = t
+        self.n_inliers = int(n_inl)
+        # found statistics for inlier points (Tracking.cc:646-655)
+        inl = (frame.point >= 0) & ~frame.outlier
+        self.map.mp_found[frame.point[inl]] += 1
+
+        min_needed = 50 if frame.frame_id < self.last_reloc_frame_id + self.cfg.max_frames else 30
+        return self.n_inliers >= min_needed
+
+    # ------------------------------------------------------------------
+    # keyframe decision (NeedNewKeyFrame :665-703)
+    # ------------------------------------------------------------------
+
+    def _need_new_keyframe(self, frame: Frame) -> bool:
+        """Reference-exact NeedNewKeyFrame (Tracking.cc:665-703): post-reloc
+        blackout only once the map holds > MaxFrames keyframes; a KF iff
+        (timeout OR mapper idle OR tracking decaying hard) AND tracking
+        degraded. The synchronous mapper is always idle here."""
+        if self.ref_kf < 0:
+            return False
+        n_kf = int(self.map.kf_valid.sum())
+        if (frame.frame_id < self.last_reloc_frame_id + self.cfg.max_frames
+                and n_kf > self.cfg.max_frames):
+            return False
+        ref_matches = int((self.map.kf_point[self.ref_kf] >= 0).sum())
+        idle = True
+        c1a = frame.frame_id >= self.last_kf_frame_id + self.cfg.max_frames
+        c2 = self.n_inliers < 0.9 * ref_matches and self.n_inliers > 15
+        if not c2:
+            return False
+        urgent = self.n_inliers < 0.5 * ref_matches
+        get_tracer().log("kf_decision", frame=int(frame.frame_id),
+                         inl=self.n_inliers, ref=ref_matches, idle=idle,
+                         c1a=bool(c1a), urgent=bool(urgent))
+        return c1a or urgent or idle  # c1b = idle (mMinFrames = 0, :77)
+
+    def _create_keyframe(self, frame: Frame):
+        if self.on_new_keyframe is not None:
+            self.on_new_keyframe(frame)
+        self.last_kf_frame_id = frame.frame_id
+
+    # ------------------------------------------------------------------
+    # relocalization (Relocalisation :881-1050)
+    # ------------------------------------------------------------------
+
+    def _relocalize(self, frame: Frame) -> bool:
+        """Relocalization needs a keyframe database; without one (vocab is
+        None) LOST is terminal, as in the reference."""
+        return False

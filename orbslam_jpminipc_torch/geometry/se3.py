@@ -79,6 +79,28 @@ def compose(Ra, ta, Rb, tb) -> tuple[torch.Tensor, torch.Tensor]:
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
 
 
+def quat_from_mat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion [w, x, y, z]; branch-free
+    Shepperd (the largest of the four pivots picks the construction),
+    canonical sign w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    qw = torch.sqrt(torch.clamp(1.0 + m00 + m11 + m22, min=1e-12)) * 0.5
+    qx = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=1e-12)) * 0.5
+    qy = torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=1e-12)) * 0.5
+    qz = torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=1e-12)) * 0.5
+    c0 = torch.stack([qw, (m21 - m12) / (4 * qw), (m02 - m20) / (4 * qw), (m10 - m01) / (4 * qw)], -1)
+    c1 = torch.stack([(m21 - m12) / (4 * qx), qx, (m01 + m10) / (4 * qx), (m02 + m20) / (4 * qx)], -1)
+    c2 = torch.stack([(m02 - m20) / (4 * qy), (m01 + m10) / (4 * qy), qy, (m12 + m21) / (4 * qy)], -1)
+    c3 = torch.stack([(m10 - m01) / (4 * qz), (m02 + m20) / (4 * qz), (m12 + m21) / (4 * qz), qz], -1)
+    idx = torch.argmax(torch.stack([qw, qx, qy, qz], dim=-1), dim=-1)
+    cands = torch.stack([c0, c1, c2, c3], dim=-2)
+    q = torch.take_along_dim(cands, idx[..., None, None].expand(*idx.shape, 1, 4), dim=-2)[..., 0, :]
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
 def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     """Project a near-rotation back onto SO(3): two Newton steps of the
     polar iteration X <- X (3 I - X^T X) / 2, as in the reference package

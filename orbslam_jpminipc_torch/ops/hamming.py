@@ -25,10 +25,11 @@ def popcount_rows(desc: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
-    """All-pairs Hamming distances: (N, 32), (M, 32) uint8 -> (N, M) int32."""
+    """All-pairs Hamming distances: (..., N, 32), (..., M, 32) uint8 ->
+    (..., N, M) int32; leading dimensions broadcast (a batch of targets)."""
     b1 = unpack_bits(d1).to(torch.float32)
     b2 = unpack_bits(d2).to(torch.float32)
-    dot = (b1 @ b2.T).to(torch.int32)
+    dot = (b1 @ b2.transpose(-1, -2)).to(torch.int32)
     p1 = b1.sum(dim=-1).to(torch.int32)
     p2 = b2.sum(dim=-1).to(torch.int32)
-    return p1[:, None] + p2[None, :] - 2 * dot
+    return p1[..., :, None] + p2[..., None, :] - 2 * dot

@@ -21,9 +21,17 @@ def _safe_inv_z(z: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.where(torch.abs(z) < 1e-12, torch.full_like(z, 1e-12), z)
 
 
+def _transform(R, t, xw):
+    """R xw + t: one (3, 3) pose for all points, or one pose per point."""
+    if R.dim() == 2:
+        return xw @ R.T + t
+    return torch.einsum("...ij,...j->...i", R, xw) + t
+
+
 def residuals(R, t, xw, uv, K4):
-    """e = uv - project(R xw + t). Shapes: xw (N, 3), uv (N, 2)."""
-    p = xw @ R.T + t
+    """e = uv - project(R xw + t). Shapes: xw (N, 3), uv (N, 2); R (3, 3)
+    or (N, 3, 3) and t (3,) or (N, 3)."""
+    p = _transform(R, t, xw)
     inv_z = _safe_inv_z(p[..., 2])
     u = K4[0] * p[..., 0] * inv_z + K4[2]
     v = K4[1] * p[..., 1] * inv_z + K4[3]
@@ -46,7 +54,7 @@ def jac_pixel_wrt_point_cam(p, K4):
 def jacobians(R, t, xw, K4):
     """Residual Jacobians: (J_pose (N, 2, 6), J_point (N, 2, 3), p_cam).
     J_pose columns are [omega, upsilon]; J_point is wrt the WORLD point."""
-    p = xw @ R.T + t
+    p = _transform(R, t, xw)
     Jproj = jac_pixel_wrt_point_cam(p, K4)
     Jw = Jproj @ hat(p)        # = -Jproj @ (-hat p)
     Jpose = torch.cat([Jw, -Jproj], dim=-1)

@@ -24,6 +24,7 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "track_fixture_xyz.npz")
+SLAM_FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "slam_fixture_xyz.npz")
 
 # Full-size fixture run on the CPU vs the recorded JAX outputs. Measured:
 # pose within 7e-8, bindings, flags and inlier counts identical on all 10
@@ -94,6 +95,54 @@ def test_small_live_run_matches_jax(fixture, motion):
         np.testing.assert_array_equal(out.feats.desc.numpy(), np.asarray(jo.feats["desc"]))
 
 
+def test_context_epoch_and_cleared_velocity_match_jax(fixture):
+    """The context's bookkeeping against the JAX `FusedContext`: `epoch`
+    counts every host overwrite of the device pose (`set_pose`,
+    `invalidate`), `ready` needs a pose and a slice, and after
+    `clear_velocity` a wrong velocity is ignored: the next step runs
+    without the motion model in both packages (pose within 1e-5, stats
+    equal), and the motion model is back on after it."""
+    kw = dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240,
+              n_features=300, n_levels=4, pipelined_tracking=False)
+    buf = _small_slice(fixture)
+    jctx = jfused.FusedContext(JaxSlamConfig(**kw), n_map=512)
+    ctx = tfused.FusedContext(SlamConfig(**kw), n_map=512)
+    R0, t0, _ = _seed_pose(fixture)
+    wrong = (np.eye(3, dtype=np.float32), np.array([0.1, 0.0, 0.0], np.float32))
+
+    def both(fn):
+        fn(jctx)
+        fn(ctx)
+        assert ctx.epoch == jctx.epoch
+        assert ctx.ready == jctx.ready
+        assert bool(ctx.has_vel) == bool(jctx.has_vel)
+
+    def put_slice(c):
+        if c is ctx:
+            c.set_slice(buf)
+        else:
+            c.slice_buf = jnp.asarray(buf)
+
+    both(lambda c: c.set_pose(R0, t0, velocity=wrong))
+    both(put_slice)
+    assert ctx.epoch == 1 and ctx.ready and bool(ctx.has_vel)
+    both(lambda c: c.invalidate())
+    assert ctx.epoch == 2 and not ctx.ready
+    both(lambda c: c.set_pose(R0, t0, velocity=wrong))
+    both(put_slice)
+    both(lambda c: c.clear_velocity())
+    assert ctx.epoch == 3 and ctx.ready and not bool(ctx.has_vel)
+    img = np.ascontiguousarray(fixture["images"][0][::2, ::2])
+    out = ctx.track(img)
+    jo = jctx.track(img)
+    assert bool(ctx.has_vel) and bool(jctx.has_vel) and ctx.epoch == jctx.epoch == 3
+    np.testing.assert_allclose(out.R.numpy(), np.asarray(jo.R), atol=POSE_TOL)
+    np.testing.assert_allclose(out.t.numpy(), np.asarray(jo.t), atol=POSE_TOL)
+    stats = np.asarray(jo.pull)[:16].view(np.float32)[12:16].astype(int)
+    got = [int(out.n_inl2), int(out.n_inl1), int(out.n_match2), int(out.n_match1)]
+    assert got == stats.tolist() and stats[0] >= 20, (got, stats)
+
+
 def test_fixture_run_matches_recorded_reference(fixture):
     cfg = SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=1000,
                      pipelined_tracking=False)
@@ -112,6 +161,50 @@ def test_fixture_run_matches_recorded_reference(fixture):
         assert abs(int(out.n_inl2) - ref_inl2) <= INLIER_REL * ref_inl2, (k, int(out.n_inl2))
         assert out.feat_bind.shape == (1000,) and out.flags.shape == (4096,)
     assert fast_cuda.LAUNCHES == before  # the CPU run never reaches the kernel
+
+
+def test_recovery_pass_matches_jax(fixture):
+    """Full-size step from a perturbed seed pose (the system fixture's: the
+    tracking fixture's pose turned 8 degrees about the optical axis and
+    moved 0.1 along x): pass 1 keeps fewer than 20 inliers, both packages
+    run the wide pass and agree (pose within 1e-5, bindings and counts
+    equal), and both agree with the outputs the fixture recorded."""
+    kw = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=1000,
+              pipelined_tracking=False)
+    sf = np.load(SLAM_FIXTURE)
+    R0, t0 = sf["recovery_R0"], sf["recovery_t0"]
+    vel = (fixture["vel_R0"], fixture["vel_t0"])
+    ctx = tfused.FusedContext(SlamConfig(**kw))
+    ctx.set_pose(R0, t0, velocity=vel)
+    ctx.set_slice(fixture["slice_buf"])
+    inliers = []
+    match_pass = ctx.step._match_pass
+
+    def counting(*a, **k):
+        r = match_pass(*a, **k)
+        inliers.append(int(r.res.n_inliers))
+        return r
+
+    ctx.step._match_pass = counting
+    out = ctx.track(fixture["images"][0])
+    assert len(inliers) == 3 and inliers[0] < 20 <= inliers[1], inliers
+
+    jstep = jfused.make_fused_step(JaxSlamConfig(**kw))
+    jo = jstep(jnp.asarray(fixture["images"][0]), jnp.asarray(R0), jnp.asarray(t0),
+               jnp.asarray(vel[0]), jnp.asarray(vel[1]), jnp.asarray(True),
+               jnp.asarray(fixture["slice_buf"]))
+    pull = np.asarray(jo.pull)
+    stats = pull[:16].view(np.float32)[12:16].astype(int)
+    # the reference kept the wide pass: its pass-1 count is the recovery's
+    assert stats[1] == inliers[1], (stats, inliers)
+    np.testing.assert_allclose(out.R.numpy(), np.asarray(jo.R), atol=POSE_TOL)
+    np.testing.assert_allclose(out.t.numpy(), np.asarray(jo.t), atol=POSE_TOL)
+    got = [int(out.n_inl2), int(out.n_inl1), int(out.n_match2), int(out.n_match1)]
+    assert got == stats.tolist(), (got, stats)
+    np.testing.assert_array_equal(out.feat_bind.numpy(), pull[16:1016])
+    np.testing.assert_array_equal(out.flags.numpy(), pull[1016:].astype(np.uint8))
+    np.testing.assert_allclose(out.R.numpy(), sf["recovery_out_R"], atol=POSE_TOL)
+    np.testing.assert_array_equal(out.feat_bind.numpy(), sf["recovery_out_feat_bind"])
 
 
 def test_slice_from_packed_round_trip():
