@@ -7,15 +7,22 @@ the whole system (`Slam.process`) from the first frame.
 Phases (any failure raises, so the script exits non-zero):
   1. device      card name and power limit (nvidia-smi), torch and CUDA versions
   2. build       compile the FAST CUDA kernel from the checkout's sources
-  3. kernel      the kernel vs its plain PyTorch version, torch.equal, at the
-                 8 pyramid-level shapes of a 480x640 frame, thresholds 7 and
-                 20, on random images, the fixture's pyramid levels and a
-                 smooth ramp; then kernel and plain times (CUDA events, warm,
-                 median of 30 launches)
+  3. kernel      the kernel vs its plain PyTorch version, torch.equal: one
+                 level a launch (`fast_detect`) at the 8 pyramid-level shapes
+                 of a 480x640 frame, thresholds 7 and 20, on random images,
+                 the fixture's pyramid levels and a smooth ramp; all 8 levels
+                 in one launch with the per-cell select (`fast_level_scores`)
+                 on the fixture's pyramid, random levels and a frame with
+                 weak and flat regions (both arms of the cell vote), against
+                 the plain version and against 8 one-level launches. Then
+                 times per frame (CUDA events, warm, median of 20 batches of
+                 10; device time from torch.profiler): one launch, 8
+                 one-level launches, the plain version; and the kernel's
+                 bound from the level shapes
   4. slice       the fused step (FusedContext/FusedStep) on the card over the
                  fixture's frames from the JAX reference's recorded state,
                  checked against the reference's recorded outputs; the FAST
-                 kernel must have run 8 times per frame. Then one frame from
+                 kernel must have run once per frame. Then one frame from
                  a perturbed seed pose, where the step must take its wide
                  recovery pass, against the reference's outputs there
   5. throughput  200 steps cycling the fixture, re-seeding the pose at each
@@ -28,8 +35,8 @@ Phases (any failure raises, so the script exits non-zero):
                  local BA, culling), the reference's RANSAC minimal sets
                  injected, then `finish()`; held to the JAX reference's
                  recorded outcome (states, keyframe and point counts, camera
-                 centres, keyframe ATE); the FAST kernel must run on the
-                 initialization frames and on the fused frames. Reports ms
+                 centres, keyframe ATE); the FAST kernel must run once on
+                 each initialization frame and each fused frame. Reports ms
                  per `process` call (initialization / keyframe / other
                  frames), the tracer's stage summary, host reads per frame
                  and peak device memory. A second, untimed system over the
@@ -70,6 +77,19 @@ SYS_KF_TOL = 2            # keyframes, absolute
 SYS_POINTS_REL = 0.10     # map points, relative
 SYS_CENTRE_TOL = 1e-2     # camera centre per frame (median depth is 1)
 SYS_ATE_MARGIN = 5e-3     # keyframe ATE above the reference's
+# the card's published peaks (NVIDIA H100 SXM data sheet) for the kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# operations per pixel of the FAST score, nonmax and select in the cheapest
+# exact form known, the one csrc/fast.cu ships: 2 x 40 three-input integer
+# min/max for the 9-arcs of both polarities (16 + 16 + 5 + 3 each), 3 to turn
+# a pixel into an integer key of the same order, 3 x 3 to turn the centre and
+# the two arc results back, 2 subtractions of the centre, 1 negation, 1 max of
+# the two, compare + select + -1 for the threshold, 8 max for the 3x3 nonmax,
+# 7 compares and selects for the nonmax test, the border mask and the cell
+# select. Counted at the card's float32 rate.
+FAST_OPS_PER_PIXEL = 2 * 40 + 3 + 3 * 3 + 2 + 1 + 1 + 3 + 8 + 7
+EDGE = 19                 # the extractor's border (EDGE_THRESHOLD)
 
 
 def log(msg: str):
@@ -176,22 +196,118 @@ def phase_kernel(torch, fast, fast_cuda, pyramid, fx):
         ramp_score = fast_cuda.fast_detect(ramp, 7.0, 0)
         if bool((ramp_score[5:-5, 5:-5] != 0).any()):
             raise AssertionError(f"corners on a smooth ramp at {(h, w)}")
-    log(f"[kernel] {n_cmp} comparisons torch.equal, max abs err {max_err}")
+    log(f"[kernel] {n_cmp} one-level comparisons torch.equal, max abs err {max_err}")
 
     per_level = []
     for (h, w), lvl in zip(LEVEL_SHAPES, levels):
         img = lvl.contiguous()
-        kern = lambda: fast_cuda.fast_detect(img, 7.0, 19)
-        ref = lambda: plain(img, 7.0, 19)
+        kern = lambda: fast_cuda.fast_detect(img, 7.0, EDGE)
+        ref = lambda: plain(img, 7.0, EDGE)
         row = {"shape": [h, w],
-               "plain_ms": _event_ms(torch, ref), "ms": _event_ms(torch, kern)}
+               "plain_ms": _event_ms(torch, ref, n=10, batch=5),
+               "ms": _event_ms(torch, kern)}
         row["device_ms"] = _device_ms(torch, kern)
-        row["plain_device_ms"] = _device_ms(torch, ref)
+        row["plain_device_ms"] = _device_ms(torch, ref, n=5)
         per_level.append(row)
-        log(f"[kernel] {h}x{w}: kernel {row['ms']:.4f} ms (device "
+        log(f"[kernel] {h}x{w} alone: kernel {row['ms']:.4f} ms (device "
             f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms (device "
             f"{row['plain_device_ms']:.4f})")
-    return {"comparisons": n_cmp, "max_abs_err": max_err, "per_level": per_level}
+
+    # --- all levels in one launch, with the per-cell select ---------------
+    def plain_levels(lv, fast_th, fast_min_th, border, cell=32):
+        return [fast.cell_select(plain(l, fast_min_th, border), fast_th, cell) for l in lv]
+
+    def mixed(h, w):
+        # strong corners left, weak ones (between the thresholds) in the
+        # middle, flat right: cells with and without a high corner
+        img = torch.full((h, w), 128.0, device=dev)
+        a, b = w // 3, 2 * w // 3
+        img[:, :a] = torch.randint(0, 256, (h, a), generator=gen, device=dev).float()
+        img[:, a:b] += torch.randint(-6, 7, (h, b - a), generator=gen, device=dev).float()
+        return img
+
+    level_sets = {
+        "pyramid": [l.contiguous() for l in levels],
+        "random": [torch.rand((h, w), generator=gen, device=dev) * 255.0 for h, w in LEVEL_SHAPES],
+        "mixed": [mixed(h, w) for h, w in LEVEL_SHAPES],
+    }
+    n_multi, both_arms = 0, False
+    for name, lv in level_sets.items():
+        for fast_th, fast_min_th in ((20.0, 7.0), (7.0, 7.0)):
+            ref = plain_levels(lv, fast_th, fast_min_th, EDGE)
+            lo = [plain(l, fast_min_th, EDGE) for l in lv]
+            n0 = fast_cuda.LAUNCHES
+            got = fast_cuda.fast_level_scores(lv, fast_th, fast_min_th, EDGE, 32)
+            if fast_cuda.LAUNCHES != n0 + 1:
+                raise AssertionError("fast_level_scores did not launch exactly once")
+            torch.cuda.synchronize()
+            for k, (g, r) in enumerate(zip(got, ref)):
+                err = float((g - r).abs().max())
+                max_err = max(max_err, err)
+                if not torch.equal(g, r):
+                    raise AssertionError(
+                        f"one launch != plain on {name} level {k} ths "
+                        f"{(fast_th, fast_min_th)}: max abs err {err}, "
+                        f"{int((g != r).sum())} pixels differ")
+            n_multi += 1
+            single = [fast_cuda.fast_level_scores([l], fast_th, fast_min_th, EDGE, 32)[0]
+                      for l in lv]
+            other_cell = fast_cuda.fast_level_scores(lv, fast_th, fast_min_th, EDGE, 16)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, o) for g, o in zip(got, single)):
+                raise AssertionError(f"one launch != 8 one-level launches on {name}")
+            if not all(torch.equal(g, r) for g, r in zip(
+                    other_cell, plain_levels(lv, fast_th, fast_min_th, EDGE, 16))):
+                raise AssertionError(f"cell 16 != plain on {name}")
+            if name == "mixed" and fast_th > fast_min_th:
+                # the vote's two arms: low corners dropped from a cell
+                # with a high corner, and kept in a cell without one
+                dropped = any(bool(((l > 0) & (g == 0)).any()) for g, l in zip(got, lo))
+                kept = any(bool(((l > 0) & (l + 1.0 <= fast_th) & (g > 0)).any())
+                           for g, l in zip(got, lo))
+                both_arms = dropped and kept
+    if not both_arms:
+        raise AssertionError("the cell vote did not take both arms on the mixed frame")
+    log(f"[kernel] {n_multi} one-launch comparisons torch.equal, one launch == 8 launches, "
+        f"cell 16 == plain, both arms of the vote taken")
+
+    # --- times per frame, on the fixture's pyramid -------------------------
+    lv = level_sets["pyramid"]
+    one = lambda: fast_cuda.fast_level_scores(lv, 20.0, 7.0, EDGE, 32)
+    eight = lambda: [fast_cuda.fast_level_scores([l], 20.0, 7.0, EDGE, 32) for l in lv]
+    ref = lambda: plain_levels(lv, 20.0, 7.0, EDGE)
+    frame = {
+        "ms": _event_ms(torch, one),
+        "device_ms": _device_ms(torch, one),
+        "eight_launches_ms": _event_ms(torch, eight),
+        "eight_launches_device_ms": _device_ms(torch, eight),
+        "plain_ms": _event_ms(torch, ref, n=10, batch=5),
+        "plain_device_ms": _device_ms(torch, ref, n=5),
+    }
+    frame.update(_fast_bound(lv))
+    log(f"[kernel] per frame (8 levels, select included): one launch {frame['ms']:.4f} ms "
+        f"(device {frame['device_ms']:.4f}), 8 one-level launches "
+        f"{frame['eight_launches_ms']:.4f} ms (device {frame['eight_launches_device_ms']:.4f}), "
+        f"plain {frame['plain_ms']:.4f} ms (device {frame['plain_device_ms']:.4f}); bound "
+        f"{frame['bound_ms']:.5f} ms by {frame['bound_by']} ({frame['pixels']} pixels, "
+        f"{frame['bytes']} bytes, {frame['operations']} operations)")
+    return {"comparisons": n_cmp + n_multi, "max_abs_err": max_err, "frame": frame,
+            "per_level": per_level}
+
+
+def _fast_bound(levels):
+    """The least time the card could take for one frame's score maps: each
+    pixel read once and written once as float32 over the memory rate, or
+    FAST_OPS_PER_PIXEL operations a pixel over the peak float32 rate,
+    whichever is larger. The work does not depend on the data."""
+    pixels = sum(l.numel() for l in levels)
+    ops = pixels * FAST_OPS_PER_PIXEL
+    n_bytes = pixels * 2 * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"pixels": pixels, "bytes": n_bytes, "operations": ops,
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def _context(FusedContext, SlamConfig, fx):
@@ -255,8 +371,9 @@ def phase_slice(torch, fast_cuda, FusedContext, SlamConfig, fx):
         "inl2_rel": max(r["inl2_rel"] for r in rows),
     }
     log(f"[slice] worst over {K} frames: {json.dumps(worst)}; FAST launches {launches}")
-    if launches != 8 * K:
-        raise AssertionError(f"FAST kernel launched {launches} times, expected {8 * K}")
+    if launches != K:
+        raise AssertionError(f"FAST kernel launched {launches} times, expected {K} "
+                             f"(one launch per frame)")
     if max(worst["dR"], worst["dt"]) > TOL_POSE:
         raise AssertionError(f"pose off the reference by {worst}")
     if worst["bind_eq"] < TOL_BIND or worst["inl2_rel"] > TOL_INLIERS:
@@ -367,7 +484,7 @@ def phase_breakdown(torch, fx, FusedContext, SlamConfig):
 
     parts = {
         "pyramid": host_ms(lambda: pyramid.build_pyramid(img, 8, 1.2)),
-        "fast_8_levels": host_ms(lambda: [fast.detect(l, 7.0, 19) for l in levels]),
+        "fast_8_levels": host_ms(lambda: fast.level_scores(levels, 20.0, 7.0, EDGE, 32)),
         "extract": host_ms(lambda: extractor.extract(img)),
         "search_by_projection_4096x1000": host_ms(lambda: matching.search_by_projection(
             slc.desc, uv, pred, slc.max_dist > 0, feats.desc, feats.xy, feats.level,
@@ -594,9 +711,9 @@ def phase_system(torch, fast_cuda, smi):
     # both frame paths extract through the kernel: build_frame on the
     # initialization frames, the fused step on every tracked frame
     no_fast = [r["frame"] for r in rows
-               if (r["kind"] == "init" or r["fused"]) and r["fast_launches"] != 8]
+               if (r["kind"] == "init" or r["fused"]) and r["fast_launches"] != 1]
     if no_fast or not any(r["fused"] for r in rows):
-        raise AssertionError(f"FAST kernel not launched 8 times on frames {no_fast}")
+        raise AssertionError(f"FAST kernel not launched exactly once on frames {no_fast}")
     return res
 
 
@@ -628,7 +745,7 @@ def main() -> int:
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    k = report["kernel"]
+    k = report["kernel"]["frame"]
     log(json.dumps({"kernels": [{
         "name": "fast9_score_nonmax3x3",
         "route": "cuda",
@@ -637,12 +754,15 @@ def main() -> int:
         # the system phase's count: Slam.process over the 28 frames
         "launches": report["system"]["fast_launches"],
         "launches_slice_phase": report["slice"]["fast_launches"],
-        "max_abs_err": k["max_abs_err"],
-        # per frame: the sum over the 8 pyramid-level shapes
-        "ms": sum(r["ms"] for r in k["per_level"]),
-        "plain_ms": sum(r["plain_ms"] for r in k["per_level"]),
-        "device_ms": sum(r["device_ms"] for r in k["per_level"]),
-        "plain_device_ms": sum(r["plain_device_ms"] for r in k["per_level"]),
+        "max_abs_err": report["kernel"]["max_abs_err"],
+        # per frame: one launch over the 8 pyramid levels, the select included
+        "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        # no single PyTorch call computes this function
+        "library_ms": None,
+        "device_ms": k["device_ms"], "plain_device_ms": k["plain_device_ms"],
+        "eight_launches_ms": k["eight_launches_ms"],
+        "eight_launches_device_ms": k["eight_launches_device_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

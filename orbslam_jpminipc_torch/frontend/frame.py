@@ -16,6 +16,7 @@ import torch
 from ..config import SlamConfig
 from ..geometry import camera as cam
 from ..ops import extractor
+from ..utils.device import resolve_device
 from ..utils.host import fetch
 
 _FEAT_FIELDS = ("xy", "xy_un", "level", "angle", "response", "desc", "valid")
@@ -101,13 +102,13 @@ class Frame:
 
 
 def build_frame(image, cfg: SlamConfig, frame_id: int = 0, timestamp: float = 0.0,
-                n_features: int | None = None, device="cpu") -> Frame:
+                n_features: int | None = None, device=None) -> Frame:
     """Extract features and undistort keypoints (Frame.cc:56-123). `image`
     is a (H, W) uint8 host array or tensor; the extraction runs on
     `device` (on the card, FAST is the CUDA kernel)."""
     if cfg.use_harris_score:
         raise ValueError("the Harris score is not ported; use FAST scores")
-    img = torch.as_tensor(image).to(device)
+    img = torch.as_tensor(image).to(resolve_device(device))
     feats = extractor.extract(
         img.to(torch.float32),
         n_features=n_features or cfg.n_features,

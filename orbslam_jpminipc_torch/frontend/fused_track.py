@@ -36,6 +36,7 @@ from ..geometry.se3 import orthonormalize
 from ..ops import matching
 from ..ops.extractor import Features, extract
 from ..solvers import pose_opt
+from ..utils.device import resolve_device
 
 MAX_SLICE = 4096  # local-map slice capacity (points of the covisible set)
 
@@ -245,10 +246,10 @@ class FusedContext:
     """Handle on the device-resident tracking state: pose, motion-model
     velocity and local-map slice, fed forward from one step to the next."""
 
-    def __init__(self, cfg: SlamConfig, n_map: int = MAX_SLICE, device="cpu"):
+    def __init__(self, cfg: SlamConfig, n_map: int = MAX_SLICE, device=None):
         self.cfg = cfg
         self.n_map = n_map
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.step = FusedStep(cfg, n_map).to(self.device)
         self.R = None
         self.t = None

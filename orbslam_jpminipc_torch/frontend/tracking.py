@@ -32,6 +32,7 @@ from ..config import SlamConfig
 from ..map.map_state import MapState
 from ..ops import matching
 from ..solvers import initializer, pose_opt
+from ..utils.device import resolve_device
 from ..utils.host import fetch
 from ..utils.tracing import get_tracer
 from . import fused_track
@@ -145,10 +146,10 @@ def _track_local_map_prog(mp_xyz, mp_normal, mp_mind, mp_maxd, mp_desc,
 
 
 class Tracker:
-    def __init__(self, cfg: SlamConfig, state: MapState, device="cpu"):
+    def __init__(self, cfg: SlamConfig, state: MapState, device=None):
         self.cfg = cfg
         self.map = state
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.state = TrackState.NO_IMAGES_YET
         self.velocity: tuple[np.ndarray, np.ndarray] | None = None
         self.last_frame: Frame | None = None

@@ -22,6 +22,7 @@ from ..frontend.fused_track import MapSlice
 from ..geometry import epipolar, triangulate
 from ..ops import matching
 from ..solvers import ba
+from ..utils.device import resolve_device
 
 TRI_CANDS = 512   # per-neighbor triangulation candidate capacity
 FUSE_CANDS = 256  # per-target fuse match capacity
@@ -30,11 +31,11 @@ FUSE_CANDS = 256  # per-target fuse match capacity
 class DeviceMap:
     """The map mirror on `device`."""
 
-    def __init__(self, max_kf: int, n_feat: int, max_mp: int, device="cpu"):
+    def __init__(self, max_kf: int, n_feat: int, max_mp: int, device=None):
         self.max_kf = max_kf
         self.n_feat = n_feat
         self.max_mp = max_mp
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # bumped on every sync; the tracker's slice refresh skips rebuilding
         # when nothing changed
         self.version = 0
@@ -268,7 +269,7 @@ def slice_kernel(dm: DeviceMap, ids, row_valid, n_obs) -> MapSlice:
                     desc=dm.mp_desc[mid], n_obs=dm.put(n_obs))
 
 
-def map_from_snapshot(snap, device="cpu"):
+def map_from_snapshot(snap, device=None):
     """A port MapState and a synced DeviceMap from a snapshot of a
     reference map: any object or dict with the MapState fields as numpy
     arrays (a JAX `MapState` itself, or `dataclasses.asdict` of one)."""
@@ -276,6 +277,7 @@ def map_from_snapshot(snap, device="cpu"):
 
     from .map_state import MapState
 
+    device = resolve_device(device)
     get = (snap.get if isinstance(snap, dict) else lambda k: getattr(snap, k))
     st = MapState.create(int(get("max_kf")), int(get("max_mp")), int(get("n_feat")),
                          int(get("max_obs")), device=device)

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from ..utils.host import fetch
 
 
@@ -76,11 +77,11 @@ class MapState:
 
     @staticmethod
     def create(max_kf: int = 256, max_mp: int = 16384, n_feat: int = 1024, max_obs: int = 32,
-               device="cpu") -> "MapState":
+               device=None) -> "MapState":
         z = np.zeros
         return MapState(
             max_kf=max_kf, max_mp=max_mp, n_feat=n_feat, max_obs=max_obs,
-            device=torch.device(device),
+            device=resolve_device(device),
             kf_R=np.tile(np.eye(3, dtype=np.float32), (max_kf, 1, 1)),
             kf_t=z((max_kf, 3), np.float32),
             kf_valid=z(max_kf, bool),

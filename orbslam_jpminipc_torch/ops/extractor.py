@@ -134,19 +134,8 @@ def _select_in_cells(score: torch.Tensor, quota: int, cell: int):
 
 def _level_score(img: torch.Tensor, fast_th: float, fast_min_th: float,
                  cell: int) -> torch.Tensor:
-    """One level's FAST score map with the per-cell threshold fallback.
-
-    One FAST pass: the score is threshold-independent, so the high-threshold
-    map is a mask of the low-threshold map (nonmax commutes with that mask).
-    """
-    h, w = img.shape
-    lo = fast.detect(img, fast_min_th, border=EDGE_THRESHOLD)
-    hi = torch.where(lo + 1.0 > fast_th, lo, torch.zeros_like(lo))
-    ph, pw = -h % cell, -w % cell
-    hi_p = F.pad(hi, (0, pw, 0, ph))
-    cell_max = hi_p.reshape((h + ph) // cell, cell, (w + pw) // cell, cell).amax(dim=(1, 3))
-    has_hi = (cell_max > 0).repeat_interleave(cell, 0).repeat_interleave(cell, 1)[:h, :w]
-    return torch.where(has_hi, hi, lo)
+    """One level's FAST score map with the per-cell threshold fallback."""
+    return fast.level_scores([img], fast_th, fast_min_th, EDGE_THRESHOLD, cell)[0]
 
 
 def _level_xy(idx: torch.Tensor, w: int) -> torch.Tensor:
@@ -175,7 +164,9 @@ def extract(
     quotas = features_per_level(n_features, n_levels, scale_factor)
     work = [(lvl, img, quota) for lvl, (img, quota) in enumerate(zip(levels, quotas))
             if quota > 0]
-    scores = [_level_score(img, fast_th, fast_min_th, cell) for _, img, _ in work]
+    # every level's score map in one call: one kernel launch on the card
+    scores = (fast.level_scores([img for _, img, _ in work], fast_th, fast_min_th,
+                                EDGE_THRESHOLD, cell) if work else [])
     cands = [_cell_candidates(s, quota, cell) for s, (_, _, quota) in zip(scores, work)]
     # one device->host transfer for every level's fast-path flag
     fast_ok = torch.stack([c.fast_ok for c in cands]).tolist()

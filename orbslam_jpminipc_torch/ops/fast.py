@@ -1,10 +1,13 @@
 """FAST-9/16 corner detection (counterpart of orbslam_jpminipc_tpu/ops/fast.py).
 
-`fast_score_map` and `nonmax_3x3` are the plain PyTorch versions: the dense
-corner score from 16 shifted copies of the image, and the strict 3x3
-non-maximum suppression. `detect` runs them for a tensor on the CPU and the
-hand-written CUDA kernel (ops/fast_cuda.py) for a tensor on the card; the
-two are bit-identical (same float32 subtract/min/max/-1 sequence).
+`fast_score_map`, `nonmax_3x3`, `border_mask` and `cell_select` are the
+plain PyTorch versions: the dense corner score from 16 shifted copies of the
+image, the strict 3x3 non-maximum suppression, the border mask, and the
+extractor's high/low threshold select per cell. `level_scores` (all levels
+of a pyramid) and `detect` (one level, no select) run them for tensors on
+the CPU and the hand-written CUDA kernel (ops/fast_cuda.py) for tensors on
+the card; the two are bit-identical (same float32 subtract/min/max/-1
+sequence).
 
 Semantics match OpenCV FAST_9_16 with nonmax suppression: a pixel is a
 corner if >= 9 contiguous circle pixels are all brighter than center + t or
@@ -88,3 +91,40 @@ def detect(img: torch.Tensor, threshold: float, border: int = 0) -> torch.Tensor
     if img.device.type != "cpu":
         raise ValueError(f"FAST detect: unsupported device {img.device}")
     return border_mask(nonmax_3x3(fast_score_map(img, threshold)), border)
+
+
+def cell_select(lo: torch.Tensor, fast_th: float, cell: int) -> torch.Tensor:
+    """The per-cell threshold fallback on a low-threshold score map `lo`:
+    cells (edge `cell`, grid from (0, 0)) that hold a high-threshold corner
+    keep only those; the others keep every corner of `lo`.
+
+    The score is threshold-independent, so the high-threshold map is a mask
+    of the low-threshold map (nonmax commutes with that mask).
+    """
+    h, w = lo.shape
+    hi = torch.where(lo + 1.0 > fast_th, lo, torch.zeros_like(lo))
+    ph, pw = -h % cell, -w % cell
+    hi_p = F.pad(hi, (0, pw, 0, ph))
+    cell_max = hi_p.reshape((h + ph) // cell, cell, (w + pw) // cell, cell).amax(dim=(1, 3))
+    has_hi = (cell_max > 0).repeat_interleave(cell, 0).repeat_interleave(cell, 1)[:h, :w]
+    return torch.where(has_hi, hi, lo)
+
+
+def level_scores(levels, fast_th: float, fast_min_th: float, border: int = 0,
+                 cell: int = 32) -> list[torch.Tensor]:
+    """The extractor's score map of every pyramid level: FAST at
+    `fast_min_th` with nonmax suppression and border masking, then
+    `cell_select` at `fast_th`.
+
+    CUDA tensors go through the CUDA kernel, all levels in one launch (with
+    the select in the same pass for `cell` 32); CPU tensors through the
+    plain version.
+    """
+    levels = list(levels)
+    if levels and all(img.is_cuda for img in levels):
+        return fast_cuda.fast_level_scores(levels, fast_th, fast_min_th, border, cell)
+    if not levels or any(img.device.type != "cpu" for img in levels):
+        raise ValueError(
+            f"FAST level_scores: levels on {[str(img.device) for img in levels]}")
+    return [cell_select(detect(img, fast_min_th, border), fast_th, cell)
+            for img in levels]

@@ -34,7 +34,7 @@ TRI_NEIGHBORS = 20
 
 
 class LocalMapper:
-    def __init__(self, cfg: SlamConfig, state: MapState, device="cpu"):
+    def __init__(self, cfg: SlamConfig, state: MapState, device=None):
         self.cfg = cfg
         self.map = state
         self.probation: list = []  # (point, generation) under culling

@@ -15,7 +15,6 @@ vocabulary (place recognition, relocalization and loop closing).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..config import SlamConfig
 from ..frontend.frame import Frame, build_frame
@@ -23,20 +22,10 @@ from ..frontend.tracking import Tracker, TrackState
 from ..map.device_map import DeviceMap
 from ..map.map_state import MapState
 from ..solvers import ba
+from ..utils.device import resolve_device
 from ..utils.host import fetch
 from ..utils.tracing import get_tracer
 from .local_mapping import LocalMapper
-
-
-def _device(device) -> torch.device:
-    """The device to run on, with an explicit index for CUDA (tensors report
-    `cuda:0`, and placement checks compare devices)."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 class Slam:
@@ -48,7 +37,7 @@ class Slam:
         if vocab is not None:
             raise ValueError("place recognition (a vocabulary) is not ported yet: pass vocab=None")
         self.cfg = cfg
-        self.device = _device(device)
+        self.device = resolve_device(device)
         # keyframe feature arrays sized for the 2x init extractor output
         self.map = MapState.create(cfg.max_kf, cfg.max_mp, 2 * cfg.n_features, cfg.max_obs,
                                    device=self.device)

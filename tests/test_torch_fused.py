@@ -61,7 +61,7 @@ def test_small_live_run_matches_jax(fixture, motion):
               n_features=300, n_levels=4, pipelined_tracking=False)
     buf = _small_slice(fixture)
     jstep = jfused.make_fused_step(JaxSlamConfig(**kw), n_map=512)
-    ctx = tfused.FusedContext(SlamConfig(**kw), n_map=512)
+    ctx = tfused.FusedContext(SlamConfig(**kw), n_map=512, device="cpu")
     R0, t0, vel = _seed_pose(fixture)
     if motion == "wrong_velocity":
         vel = (np.eye(3, dtype=np.float32), np.array([0.1, 0.0, 0.0], np.float32))
@@ -106,7 +106,7 @@ def test_context_epoch_and_cleared_velocity_match_jax(fixture):
               n_features=300, n_levels=4, pipelined_tracking=False)
     buf = _small_slice(fixture)
     jctx = jfused.FusedContext(JaxSlamConfig(**kw), n_map=512)
-    ctx = tfused.FusedContext(SlamConfig(**kw), n_map=512)
+    ctx = tfused.FusedContext(SlamConfig(**kw), n_map=512, device="cpu")
     R0, t0, _ = _seed_pose(fixture)
     wrong = (np.eye(3, dtype=np.float32), np.array([0.1, 0.0, 0.0], np.float32))
 
@@ -146,7 +146,7 @@ def test_context_epoch_and_cleared_velocity_match_jax(fixture):
 def test_fixture_run_matches_recorded_reference(fixture):
     cfg = SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=1000,
                      pipelined_tracking=False)
-    ctx = tfused.FusedContext(cfg)
+    ctx = tfused.FusedContext(cfg, device="cpu")
     R0, t0, vel = _seed_pose(fixture)
     ctx.set_pose(R0, t0, velocity=vel)
     ctx.set_slice(fixture["slice_buf"])
@@ -174,7 +174,7 @@ def test_recovery_pass_matches_jax(fixture):
     sf = np.load(SLAM_FIXTURE)
     R0, t0 = sf["recovery_R0"], sf["recovery_t0"]
     vel = (fixture["vel_R0"], fixture["vel_t0"])
-    ctx = tfused.FusedContext(SlamConfig(**kw))
+    ctx = tfused.FusedContext(SlamConfig(**kw), device="cpu")
     ctx.set_pose(R0, t0, velocity=vel)
     ctx.set_slice(fixture["slice_buf"])
     inliers = []

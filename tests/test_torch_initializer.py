@@ -93,7 +93,7 @@ def test_initialize_matches_jax_on_fixture_frames():
     schedule (key(seed), split once per attempt)."""
     fx = np.load(SLAM_FIXTURE)
     cfg = SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=1000)
-    frames = [build_frame(fx["images"][i], cfg, frame_id=i, n_features=2000) for i in (0, 1)]
+    frames = [build_frame(fx["images"][i], cfg, frame_id=i, n_features=2000, device="cpu") for i in (0, 1)]
     f0, f1 = frames
     args = (f0.desc, f0.xy_un, f0.angle, f0.valid, f0.level,
             f1.desc, f1.xy_un, f1.angle, f1.level, f1.valid, K4)

@@ -226,7 +226,7 @@ def _both(world):
     jst = copy.deepcopy(world[0])
     jdm = jdmap.DeviceMap(jst.max_kf, jst.n_feat, jst.max_mp)
     jdm.sync_all(jst)
-    tst, tdm = tdmap.map_from_snapshot(copy.deepcopy(world[0]))
+    tst, tdm = tdmap.map_from_snapshot(copy.deepcopy(world[0]), device="cpu")
     return jst, jdm, tst, tdm
 
 
@@ -528,9 +528,9 @@ def test_ba_abort_matches_jax(world):
     jst.kf_t[1:N_KF] += rng.normal(0, 0.01, (N_KF - 1, 3)).astype(np.float32)
     feats = np.nonzero(jst.kf_point[3] >= 0)[0][:8]
     jst.kf_xy[3, feats] += np.float32(25.0)
-    tst, _ = tdmap.map_from_snapshot(copy.deepcopy(jst))
+    tst, _ = tdmap.map_from_snapshot(copy.deepcopy(jst), device="cpu")
     jm = JaxLocalMapper(CFG, jst)
-    tm = LocalMapper(SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0), tst)
+    tm = LocalMapper(SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0), tst, device="cpu")
     jm.dmap.sync_all(jst)
     tm.dmap.sync_all(tst)
     before = [(st.kf_R.copy(), st.kf_t.copy(), st.mp_xyz.copy(), st.mp_obs_kf.copy())
@@ -585,8 +585,8 @@ def test_fused_refresh_slice_matches_reference_packing(world):
             st.mp_desc[pts], n_obs, len(pts))
     ref = np.asarray(jfused.pack_slice(*args, m=256))
     np.testing.assert_array_equal(tfused.pack_slice(*args, m=256), ref)
-    tst, _ = tdmap.map_from_snapshot(copy.deepcopy(st))
-    ctx = tfused.FusedContext(SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0), n_map=256)
+    tst, _ = tdmap.map_from_snapshot(copy.deepcopy(st), device="cpu")
+    ctx = tfused.FusedContext(SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0), n_map=256, device="cpu")
     ctx.refresh_slice(tst, pts)
     want = tfused.slice_from_packed(ref, "cpu")
     for name in want._fields:
