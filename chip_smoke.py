@@ -25,7 +25,7 @@ Phases (any failure raises, so the script exits non-zero):
                  kernel must have run once per frame. Then one frame from
                  a perturbed seed pose, where the step must take its wide
                  recovery pass, against the reference's outputs there
-  5. throughput  200 steps cycling the fixture, re-seeding the pose at each
+  5. throughput  100 steps cycling the fixture, re-seeding the pose at each
                  wrap: p50/p95 ms per frame, frames/s, peak device memory
   6. breakdown   the step's layers timed alone at the step's shapes, and a
                  torch.profiler window over 9 steps (device busy share)
@@ -43,10 +43,41 @@ Phases (any failure raises, so the script exits non-zero):
                  same frames counts host synchronisations per frame (CUDA
                  sync debug mode) and shows how far two runs on the card
                  agree.
+  8. reloc_async `Slam(cfg, vocab=tree64k, enable_loop_closing=False)` at the
+                 shipping widths with the 64k-word tree vocabulary, twice.
+                 Run R (synchronous mapping): the 28 frames, 3 noise frames
+                 (the camera covered), then frames 28-44 of the sequence;
+                 the tracker must go LOST, relocalize through the keyframe
+                 database and PnP, and come back on the frame the JAX
+                 reference did (its initialization and PnP minimal sets
+                 injected); held to the reference's states, first candidate
+                 list, camera centres after recovery and keyframe ATE. Run A
+                 (`async_mapping=True`, the reference package's default):
+                 the 45 frames without the noise; keyframes only when the
+                 mapper-busy gate allows, the mapping stages worked off over
+                 later frames and never waited for; held to outcomes and
+                 to the stage queue's invariants. Reports ms per `process`
+                 by frame group (initialization, keyframe, other, lost),
+                 keyframes, queue depth, BAs cancelled and aborted, host
+                 reads and synchronisations per frame by group, the
+                 relocalization attempts, the keyframe database's times, the
+                 batched library solves of one PnP call alone, and peak
+                 device memory. The FAST kernel must run once on every frame.
 
-The fixtures (orbslam_jpminipc_torch/data/track_fixture_xyz.npz and
-slam_fixture_xyz.npz) carry real frames and the reference's state and
-outputs; tools/make_torch_fixture.py and tools/make_torch_slam_fixture.py
+`--phases a,b` runs only the named phases (after device and build) and
+prints no result line. `--compare TREE TREE ...` runs the throughput and
+system phases of several checkouts one after another, each tree's own code
+in a process of its own, and prints one JSON line per tree: times on the
+card move with the host between calls, so two commits are compared only
+inside one call, in the order parent, change, change, parent:
+
+    git archive <parent> | tar -x -C chip_archive/parent   # a directory .gitignore lists
+    python3 chip_smoke.py --compare chip_archive/parent . . chip_archive/parent
+
+The fixtures (orbslam_jpminipc_torch/data/track_fixture_xyz.npz,
+slam_fixture_xyz.npz and reloc_fixture_xyz.npz) carry real frames and the
+reference's state and outputs; tools/make_torch_fixture.py,
+tools/make_torch_slam_fixture.py and tools/make_torch_reloc_fixture.py
 write them. Details go to chiprun_out/chip_smoke.json. The last line of
 standard output is {"ok": true, "device": {...}}.
 """
@@ -64,6 +95,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "track_fixture_xyz.npz")
 SLAM_FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "slam_fixture_xyz.npz")
+RELOC_FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "reloc_fixture_xyz.npz")
+VOCAB = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "vocab_tree64k.npz")
 LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
                 (231, 309), (193, 257), (161, 214), (134, 179)]
 # parity with the reference's recorded outputs on the card: pose entries,
@@ -77,6 +110,9 @@ SYS_KF_TOL = 2            # keyframes, absolute
 SYS_POINTS_REL = 0.10     # map points, relative
 SYS_CENTRE_TOL = 1e-2     # camera centre per frame (median depth is 1)
 SYS_ATE_MARGIN = 5e-3     # keyframe ATE above the reference's
+# the forced-loss run against the reference's recorded outcome on the card
+RELOC_STATE_MISMATCH_MAX = 2   # frames whose state may differ
+RELOC_WITHIN_FRAMES = 20       # WORKING again within this many frames of the loss
 # the card's published peaks (NVIDIA H100 SXM data sheet) for the kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -146,17 +182,23 @@ def _device_time_us(e) -> float:
 
 
 def _device_ms(torch, fn, n=10):
-    """Device (kernel) time per call from torch.profiler, launch gaps excluded."""
+    """Device (kernel) time per call from torch.profiler, launch gaps
+    excluded. A window whose kernel count is no multiple of the calls made
+    has lost events (seen once: a frame's one launch read as 0.0065 ms,
+    0.0178 in the calls before and after) and is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = sum(_device_time_us(e) for e in prof.key_averages() if _is_device_event(e))
-    return us / n / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if _is_device_event(e)]
+        if kernels and sum(e.count for e in kernels) % n == 0:
+            break
+    return sum(_device_time_us(e) for e in kernels) / n / 1e3
 
 
 def phase_kernel(torch, fast, fast_cuda, pyramid, fx):
@@ -420,7 +462,7 @@ def _recovery_frame(torch, ctx, image, fx):
     return row
 
 
-def phase_throughput(torch, FusedContext, SlamConfig, fx, n_steps=200):
+def phase_throughput(torch, FusedContext, SlamConfig, fx, n_steps=100):
     ctx = _context(FusedContext, SlamConfig, fx)
     images = [torch.as_tensor(im).cuda() for im in fx["images"]]
     K = len(images)
@@ -449,7 +491,7 @@ def phase_throughput(torch, FusedContext, SlamConfig, fx, n_steps=200):
         "fps": n_steps / wall,
         "peak_mem_bytes": int(peak),
     }
-    log(f"[throughput] {json.dumps(res)}")
+    log(f"[throughput] {n_steps} steps: {json.dumps(res)}")
     return res
 
 
@@ -717,11 +759,383 @@ def phase_system(torch, fast_cuda, smi):
     return res
 
 
+def _library_solves(torch):
+    """The batched library solves of one PnP call (256 hypotheses), each
+    alone on the card, and the whole EPnP on 256 minimal sets."""
+    from orbslam_jpminipc_torch.solvers import epnp
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    a12 = torch.randn((256, 24, 12), generator=gen, device="cuda")
+    mtm = a12.transpose(-1, -2) @ a12
+    a3 = torch.randn((256, 3, 3), generator=gen, device="cuda")
+    ptp = a3.transpose(-1, -2) @ a3
+    c4 = torch.randn((256, 4, 4), generator=gen, device="cuda")
+    a4 = c4.transpose(-1, -2) @ c4 + 1e-3 * torch.eye(4, device="cuda")
+    rhs = torch.randn((256, 4, 1), generator=gen, device="cuda")
+    xw = torch.randn((256, 4, 3), generator=gen, device="cuda") + torch.tensor(
+        [0.0, 0.0, 5.0], device="cuda")
+    uv = 500.0 * xw[..., :2] / xw[..., 2:] + torch.tensor([320.0, 240.0], device="cuda")
+    w = torch.ones((256, 4), device="cuda")
+    K4 = torch.tensor([500.0, 500.0, 320.0, 240.0], device="cuda")
+    return {
+        "eigh_256x12x12_ms": _event_ms(torch, lambda: torch.linalg.eigh(mtm), n=5, batch=3, warm=2),
+        "eigh_256x3x3_ms": _event_ms(torch, lambda: torch.linalg.eigh(ptp), n=5, batch=3, warm=2),
+        "svd_256x3x3_ms": _event_ms(torch, lambda: torch.linalg.svd(a3), n=5, batch=3, warm=2),
+        "pinv_256x4x4_ms": _event_ms(torch, lambda: torch.linalg.pinv(c4, rtol=1e-6),
+                                     n=5, batch=3, warm=2),
+        "solve_ex_256x4x4_ms": _event_ms(torch, lambda: torch.linalg.solve_ex(a4, rhs),
+                                         n=5, batch=3, warm=2),
+        "epnp_pose_256x4_ms": _event_ms(torch, lambda: epnp.epnp_pose(xw, uv, w, K4),
+                                        n=5, batch=2, warm=2),
+    }
+
+
+def _kf_ate_seq(slam, timestamps, gt_R, gt_t):
+    from orbslam_jpminipc_torch.io.trajectory import ate_rmse
+
+    index = {round(float(ts), 6): i for i, ts in enumerate(timestamps)}
+    kft = slam.keyframe_trajectory()
+    est = np.stack([-R.T @ t for _, R, t in kft]).astype(np.float64)
+    gi = [index[round(ts, 6)] for ts, _, _ in kft]
+    gt = np.stack([-gt_R[i].T @ gt_t[i] for i in gi]).astype(np.float64)
+    return ate_rmse(est, gt)
+
+
+def phase_reloc_async(torch, fast_cuda, smi):
+    import warnings
+
+    from orbslam_jpminipc_torch.config import SlamConfig
+    from orbslam_jpminipc_torch.frontend.tracking import TrackState
+    from orbslam_jpminipc_torch.pipeline.local_mapping import LocalMapper
+    from orbslam_jpminipc_torch.pipeline.system import Slam
+    from orbslam_jpminipc_torch.utils import host
+    from orbslam_jpminipc_torch.utils.tracing import StageQueueAudit, get_tracer
+    from orbslam_jpminipc_torch.vocab.vocabulary import load_vocabulary
+
+    sf = dict(np.load(SLAM_FIXTURE))
+    rf = dict(np.load(RELOC_FIXTURE))
+    meta = json.loads(str(rf["meta"]))
+    n_before, n_noise = int(meta["before"]), int(meta["noise"])
+    rng = np.random.default_rng(int(meta["noise_seed"]))
+    noise = [rng.integers(0, 256, (480, 640)).astype(np.uint8) for _ in range(n_noise)]
+    seq_images = [torch.as_tensor(im).cuda() for im in sf["images"][:n_before]] + [
+        torch.as_tensor(im).cuda() for im in rf["images"]]
+    seq_ts = rf["seq_timestamps"]
+    if len(seq_images) != len(seq_ts):
+        raise AssertionError(f"{len(seq_images)} frames for {len(seq_ts)} timestamps")
+    run_r_images = (seq_images[:n_before] + [torch.as_tensor(im).cuda() for im in noise]
+                    + seq_images[int(meta["resume"]):])
+    run_r_ts = rf["timestamps"]
+    tracer = get_tracer()
+
+    t0 = time.perf_counter()
+    vocab = load_vocabulary(VOCAB)
+    torch.cuda.synchronize()
+    log(f"[reloc_async] vocabulary: {vocab.n_words} words, k {vocab.k}, depth {vocab.depth}, "
+        f"{vocab.node_desc.shape[0]} nodes on {vocab.device}, loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    solves = _library_solves(torch)
+    log(f"[reloc_async] {smi}: library solves alone, ms per call: {json.dumps(solves)}")
+
+    def make(async_mapping, inject_pnp):
+        cfg = SlamConfig(**dict(meta["config"], async_mapping=async_mapping))
+        slam = Slam(cfg, vocab=vocab, enable_loop_closing=False)
+        isets = iter(torch.as_tensor(x).cuda() for x in rf["init_sets"])
+        slam.tracker.sampler = lambda mask, n_hyp: next(isets)
+        if inject_pnp:
+            psets = iter(torch.as_tensor(x).cuda() for x in rf["pnp_sets"])
+            slam.tracker.pnp_sampler = lambda mask, n_hyp: next(psets)
+        kf_events, events = [], []
+        insert = slam.mapper.insert_keyframe
+        slam.mapper.insert_keyframe = lambda frame: (kf_events.append(frame.frame_id),
+                                                     insert(frame))[1]
+        return slam, kf_events, events, StageQueueAudit(slam)
+
+    def drive(slam, kf_events, events, images, timestamps, count_syncs, sync_each):
+        """Feed the frames through `Slam.process`. With `sync_each` every
+        call is timed to the end of its device work; without, to its return
+        only, and the device is never waited for between frames (a mapping
+        program launched in one frame is still running in the next, as in
+        use). With `count_syncs` every host synchronisation is recorded
+        (CUDA sync debug mode), which slows the calls: that pass is not
+        timed."""
+        rows = []
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        orig_log = tracer.log
+        tracer.log = lambda event, **f: (events.append({"event": event, **f}),
+                                         orig_log(event, **f))[1]
+        try:
+            for i, (img, ts) in enumerate(zip(images, timestamps)):
+                was = slam.tracker.state
+                fused = slam.tracker.fused_usable(slam.frame_count)
+                reads0, launches0, kf0 = host.READS, fast_cuda.LAUNCHES, len(kf_events)
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    if sync_each:
+                        torch.cuda.synchronize()
+                    if count_syncs:
+                        torch.cuda.set_sync_debug_mode("warn")
+                    t0 = time.perf_counter()
+                    try:
+                        state, frame = slam.process(img, float(ts))
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    ms_host = (time.perf_counter() - t0) * 1e3
+                    if sync_each:
+                        torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                sites = [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+                         if "synchroniz" in str(w.message)]
+                syncs = len(sites)
+                pose = np.full((3, 4), np.nan, np.float32)
+                if frame is not None and frame.R is not None:
+                    pose[:, :3], pose[:, 3] = frame.R, frame.t
+                kind = ("lost" if TrackState.LOST in (was, state)
+                        else "init" if was != TrackState.WORKING
+                        else "keyframe" if len(kf_events) > kf0 else "other")
+                rows.append({
+                    "frame": i, "kind": kind, "ms": ms, "ms_until_return": ms_host,
+                    "state": state.value, "n_inliers": slam.tracker.n_inliers,
+                    "n_keyframes": slam.n_keyframes, "n_points": slam.n_points,
+                    "queue_depth": sum(len(st) for _, st in slam.pending),
+                    "centre": _centre(pose).tolist() if np.isfinite(pose).all() else None,
+                    "fetches": host.READS - reads0, "syncs": syncs if count_syncs else None,
+                    "sync_sites": sites,
+                    "fast_launches": fast_cuda.LAUNCHES - launches0, "fused": fused,
+                })
+            t0 = time.perf_counter()
+            slam.finish()
+            torch.cuda.synchronize()
+            finish_ms = (time.perf_counter() - t0) * 1e3
+            wall_s = time.perf_counter() - t_run
+        finally:
+            del tracer.log
+        return rows, finish_ms, wall_s
+
+    def groups_of(rows, key, unit):
+        return {k: _percentiles([r[key] for r in rows if r["kind"] == k and r[key] is not None],
+                                unit=unit)
+                for k in ("init", "keyframe", "other", "lost")}
+
+    def run(name, async_mapping, inject_pnp, images, timestamps):
+        """The run timed from the kernel's launch count 0, then once more
+        untimed under CUDA sync debug mode for the synchronisations."""
+        slam, kf_events, events, audit = make(async_mapping, inject_pnp)
+        tracer.reset()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fast_cuda.LAUNCHES = 0
+        rows, finish_ms, wall_s = drive(slam, kf_events, events, images, timestamps, False,
+                                        sync_each=not async_mapping)
+        launches = fast_cuda.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        stages = tracer.summary()
+        slam2, kf_events2, events2, _ = make(async_mapping, inject_pnp)
+        rows2, _, _ = drive(slam2, kf_events2, events2, images, timestamps, True,
+                            sync_each=not async_mapping)
+        del slam2
+        # every frame's row is in the report file; here the frames around
+        # initialization and loss, and the run at a glance
+        for r in rows:
+            if r["kind"] in ("init", "lost"):
+                log(f"[{name}] frame {r['frame']} {r['kind']}: {TrackState(r['state']).name} "
+                    f"{r['ms']:.1f} ms, inl {r['n_inliers']}, kf {r['n_keyframes']}, pts "
+                    f"{r['n_points']}, reads {r['fetches']}, FAST {r['fast_launches']}")
+        log(f"[{name}] frames by kind (i init, K keyframe, o other, L lost): "
+            f"{''.join({'init': 'i', 'keyframe': 'K', 'other': 'o', 'lost': 'L'}[r['kind']] for r in rows)}"
+            f"; queue depth after each frame: {[r['queue_depth'] for r in rows]}")
+        depth = [r["queue_depth"] for r in rows]
+        # where the second run's synchronisations were made: the source
+        # line of the call that waited, summed over each group's frames
+        sync_sites = {}
+        for r in rows2:
+            tally = sync_sites.setdefault(r["kind"], {})
+            for site in r.pop("sync_sites"):
+                tally[site] = tally.get(site, 0) + 1
+        for r in rows:
+            r.pop("sync_sites")
+        res = {
+            "card": smi, "frames": len(rows), "async_mapping": async_mapping,
+            "ms_per_frame": groups_of(rows, "ms", "_ms"),
+            "ms_until_return": groups_of(rows, "ms_until_return", "_ms"),
+            "fetches_per_frame": groups_of(rows, "fetches", ""),
+            # the second, untimed run's counts, grouped by that run's own kinds
+            "syncs_per_frame": groups_of(rows2, "syncs", ""),
+            "sync_sites": sync_sites,
+            "keyframes_inserted": len(kf_events), "n_keyframes": slam.n_keyframes,
+            "n_points": slam.n_points,
+            "queue_depth": {"p50": float(np.percentile(depth, 50)), "max": audit.max_depth},
+            "queue": audit.counts(),
+            "not_ready_skips": sum(e["event"] == "mapping_not_ready" for e in events),
+            "finish_ms": finish_ms, "wall_s": wall_s, "synchronised_each_frame": not async_mapping,
+            "fast_launches": launches, "peak_mem_bytes": int(peak),
+            "stages": {k: v for k, v in stages.items()
+                       if k.startswith(("kfdb", "bow", "reloc", "mapping", "map_", "track"))},
+            "rows": rows, "events": [e for e in events if e["event"].startswith(
+                ("reloc_", "ba_", "mapping_not_ready"))],
+        }
+        for k, g in res["ms_per_frame"].items():
+            log(f"[{name}] {smi}: {k} frames ms per process: {json.dumps(g)}; until the call "
+                f"returned: {json.dumps(res['ms_until_return'][k])}; reads per frame "
+                f"{json.dumps(res['fetches_per_frame'][k])}; host synchronisations per frame "
+                f"(sync debug mode, untimed second run) {json.dumps(res['syncs_per_frame'][k])}")
+        log(f"[{name}] {smi}: keyframes inserted {res['keyframes_inserted']}, in the map "
+            f"{res['n_keyframes']}, points {res['n_points']}; queue depth p50 "
+            f"{res['queue_depth']['p50']} max {res['queue_depth']['max']}; "
+            f"{json.dumps(res['queue'])}; ticks that skipped a stage not ready "
+            f"{res['not_ready_skips']}; finish() {finish_ms:.1f} ms; the whole run "
+            f"{wall_s:.2f} s ({'each frame timed to the end of its device work' if not async_mapping else 'frames timed to the return of the call, the device never waited for between frames'}); FAST launches {launches}; "
+            f"peak device memory {peak} bytes")
+        for k, tally in sync_sites.items():
+            top = sorted(tally.items(), key=lambda kv: -kv[1])[:10]
+            log(f"[{name}] synchronisations of the {k} frames by source line (second run, "
+                f"{sum(r['kind'] == k for r in rows2)} frames): {json.dumps(top)}")
+        for k in ("kfdb_add", "bow_word_ids", "kfdb_query_bow", "kfdb_detect_reloc",
+                  "reloc_candidate", "reloc_refine"):
+            if k in stages:
+                log(f"[{name}] {smi}: stage {k}: {json.dumps(stages[k])}")
+        if launches != len(rows) or any(r["fast_launches"] != 1 for r in rows):
+            raise AssertionError(f"[{name}] FAST kernel launched {launches} times over "
+                                 f"{len(rows)} frames, expected once a frame")
+        return slam, rows, res, events, audit
+
+    # ---- Run R: forced loss, synchronous mapping, held to the reference ----
+    slam, rows, res_r, events, _ = run("run_r", False, True, run_r_images, run_r_ts)
+    ref_states = rf["states"].tolist()
+    states = [r["state"] for r in rows]
+    mismatch = [i for i, (a, b) in enumerate(zip(states, ref_states)) if a != b]
+    lost = [i for i, st in enumerate(states) if st == TrackState.LOST.value]
+    ref_lost = [i for i, st in enumerate(ref_states) if st == TrackState.LOST.value]
+    back = next((i for i in range(lost[0], len(states))
+                 if states[i] == TrackState.WORKING.value), None) if lost else None
+    ref_back = next(i for i in range(ref_lost[0], len(ref_states))
+                    if ref_states[i] == TrackState.WORKING.value)
+    ref_log = json.loads(str(rf["reloc_log"]))
+    cands = [e["cands"] for e in events if e["event"] == "reloc_candidates"]
+    ref_cands = [e["cands"] for e in ref_log if e["event"] == "reloc_candidates"]
+    dc = [float(np.abs(np.subtract(r["centre"], _centre(rf["poses"][r["frame"]]))).max())
+          for r in rows if back is not None and r["frame"] >= back and r["centre"] is not None
+          and np.isfinite(rf["poses"][r["frame"]]).all()]
+    ate = _kf_ate_seq(slam, seq_ts, rf["gt_R"], rf["gt_t"])
+    ref_ate = float(rf["kf_ate"])
+    attempts = []
+    for e in events:
+        if e["event"] == "reloc_candidates":
+            attempts.append({"frame": e["frame"], "cands": e["cands"], "tried": 0,
+                             "accepted_by": None})
+        elif e["event"] == "reloc_attempt":
+            attempts[-1]["tried"] += 1
+        elif e["event"] == "reloc_opt" and e["n_inliers"] >= 50:
+            attempts[-1]["accepted_by"] = "pnp + pose optimization"
+        elif e["event"] == "reloc_refine" and e["n_inliers"] >= 50:
+            attempts[-1]["accepted_by"] = f"rung {e['radius']} px"
+    enter_fused = next((r["frame"] for r in rows if back is not None and r["frame"] > back
+                        and r["fused"]), None)
+    res_r.update({
+        "state_mismatch_frames": mismatch, "lost_frames": lost, "ref_lost_frames": ref_lost,
+        "working_again": back, "ref_working_again": ref_back, "candidates": cands,
+        "ref_candidates": ref_cands, "max_dcentre_after_recovery": max(dc) if dc else None,
+        "kf_ate": ate, "ref_kf_ate": ref_ate, "relocalizations": attempts,
+        "reloc_log": [e for e in events if e["event"].startswith("reloc_")], "ref_reloc_log": ref_log,
+    })
+    log(f"[run_r] outcome: states differ on frames {mismatch}; LOST on {lost} (ref {ref_lost}); "
+        f"WORKING again on {back} (ref {ref_back}); candidate lists {cands} (ref {ref_cands}); "
+        f"max centre diff after recovery {res_r['max_dcentre_after_recovery']}; kf ATE "
+        f"{ate:.6f} (ref {ref_ate:.6f}); keyframes {slam.n_keyframes} (ref "
+        f"{int(rf['n_keyframes'])}), points {slam.n_points} (ref {int(rf['n_points'])})")
+    log(f"[run_r] relocalizations: {json.dumps(attempts)}; log "
+        f"{json.dumps(res_r['reloc_log'])}")
+    if len(mismatch) > RELOC_STATE_MISMATCH_MAX:
+        raise AssertionError(f"[run_r] states differ from the reference on frames {mismatch}")
+    if not lost or back is None:
+        raise AssertionError(f"[run_r] no loss and recovery: LOST on {lost}, back on {back}")
+    if back != ref_back or back - lost[0] > RELOC_WITHIN_FRAMES:
+        raise AssertionError(f"[run_r] WORKING again on frame {back}, reference {ref_back}, "
+                             f"lost on {lost[0]}")
+    if not cands or cands[0] != ref_cands[0]:
+        raise AssertionError(f"[run_r] first candidate list {cands[:1]}, reference {ref_cands[:1]}")
+    if not dc or max(dc) > SYS_CENTRE_TOL:
+        raise AssertionError(f"[run_r] camera centres after recovery off by {max(dc, default=None)}")
+    if not np.isfinite(ate) or ate > ref_ate + SYS_ATE_MARGIN:
+        raise AssertionError(f"[run_r] keyframe ATE {ate} above the reference's {ref_ate}")
+    if enter_fused is None:
+        raise AssertionError("[run_r] the fused path was not re-entered after relocalization")
+    log(f"[run_r] fused path re-entered on frame {enter_fused}")
+    init_frame_r = next(r["frame"] for r in rows if r["state"] == TrackState.WORKING.value)
+    del slam
+
+    # ---- Run A: asynchronous mapping, held to outcomes and invariants ----
+    slam, rows, res_a, events, audit = run("run_a", True, False, seq_images, seq_ts)
+    states = [r["state"] for r in rows]
+    init_frame_a = next((r["frame"] for r in rows if r["state"] == TrackState.WORKING.value), None)
+    not_working = [r["frame"] for r in rows
+                   if init_frame_a is not None and r["frame"] >= init_frame_a
+                   and r["state"] != TrackState.WORKING.value]
+    other = [r["frame"] for r in rows if r["kind"] == "other"]
+    ate = _kf_ate_seq(slam, seq_ts, rf["gt_R"], rf["gt_t"])
+    res_a.update({"init_frame": init_frame_a, "other_frames": other, "kf_ate": ate,
+                  "ref_kf_ate_run_r": ref_ate})
+    log(f"[run_a] outcome: WORKING from frame {init_frame_a} (run R {init_frame_r}); frames not "
+        f"WORKING after it {not_working}; {len(other)} WORKING frames that insert no keyframe; "
+        f"kf ATE {ate:.6f} (run R's reference {ref_ate:.6f})")
+    if init_frame_a != init_frame_r:
+        raise AssertionError(f"[run_a] initialised on frame {init_frame_a}, run R on {init_frame_r}")
+    if not_working:
+        raise AssertionError(f"[run_a] not WORKING on frames {not_working}")
+    if not other:
+        raise AssertionError("[run_a] every WORKING frame inserted a keyframe")
+    audit.check(LocalMapper.STAGES)
+    if not np.isfinite(ate) or ate > ref_ate + SYS_ATE_MARGIN:
+        raise AssertionError(f"[run_a] keyframe ATE {ate} above run R's reference {ref_ate}")
+    return {"library_solves_ms": solves, "run_r": res_r, "run_a": res_a}
+
+
+# what `--compare` runs in each tree: that tree's own phases, quietly
+_COMPARE_RUN = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from orbslam_jpminipc_torch.config import SlamConfig
+from orbslam_jpminipc_torch.frontend.fused_track import FusedContext
+from orbslam_jpminipc_torch.ops import fast_cuda
+c.log = lambda msg: None
+fast_cuda.build()
+smi = c.phase_device(torch)
+fx = dict(np.load(c.FIXTURE))
+thr = c.phase_throughput(torch, FusedContext, SlamConfig, fx, n_steps=100)
+sysr = c.phase_system(torch, fast_cuda, smi)
+keep = ("ms_per_frame", "syncs_per_frame", "fetches_per_frame", "n_keyframes", "n_points",
+        "kf_ate", "states_equal", "peak_mem_bytes")
+print("RESULT " + json.dumps({"card": smi, "step": thr, "system": {k: sysr[k] for k in keep}}))
+"""
+
+
+def compare(trees) -> int:
+    """The step's p50/p95 and the system phase's ms per `Slam.process` by
+    frame group, synchronisations, reads and outcome, for each tree in turn."""
+    for i, tree in enumerate(trees):
+        out = subprocess.run([sys.executable, "-c", _COMPARE_RUN], cwd=tree,
+                             capture_output=True, text=True, timeout=1500)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
+        if out.returncode != 0 or not lines:
+            sys.stderr.write(out.stdout[-2000:] + out.stderr[-4000:])
+            raise SystemExit(f"chip_smoke: --compare run {i} in {tree} failed")
+        log(json.dumps({"run": i, "tree": os.path.normpath(tree),
+                        **json.loads(lines[-1][len("RESULT "):])}))
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
+    if "--compare" in sys.argv[1:]:
+        return compare(sys.argv[sys.argv.index("--compare") + 1:])
     sys.path.insert(0, REPO)
     from orbslam_jpminipc_torch.config import SlamConfig
     from orbslam_jpminipc_torch.frontend.fused_track import FusedContext
@@ -730,20 +1144,44 @@ def main() -> int:
     fx = dict(np.load(FIXTURE))
     report = {"device": phase_device(torch)}
     report["build_s"] = phase_build(fast_cuda)
-    report["kernel"] = phase_kernel(torch, fast, fast_cuda, pyramid, fx)
-    report["slice"] = phase_slice(torch, fast_cuda, FusedContext, SlamConfig, fx)
-    report["throughput"] = phase_throughput(torch, FusedContext, SlamConfig, fx)
-    report["breakdown"] = phase_breakdown(torch, fx, FusedContext, SlamConfig)
-    busy = (report["breakdown"]["profile"]["device_ms_per_step"]
-            / report["throughput"]["mean_ms"])
-    report["device_busy_share"] = busy
-    log(f"[breakdown] device busy share: {busy:.3f} (profiled kernel time per "
-        f"step over the unprofiled mean step time)")
-    report["system"] = phase_system(torch, fast_cuda, report["device"])
+    smi = report["device"]
+
+    def busy_share():
+        busy = (report["breakdown"]["profile"]["device_ms_per_step"]
+                / report["throughput"]["mean_ms"])
+        log(f"[breakdown] device busy share: {busy:.3f} (profiled kernel time per "
+            f"step over the unprofiled mean step time)")
+        return busy
+
+    phases = {
+        "kernel": lambda: phase_kernel(torch, fast, fast_cuda, pyramid, fx),
+        "slice": lambda: phase_slice(torch, fast_cuda, FusedContext, SlamConfig, fx),
+        "throughput": lambda: phase_throughput(torch, FusedContext, SlamConfig, fx),
+        "breakdown": lambda: phase_breakdown(torch, fx, FusedContext, SlamConfig),
+        "device_busy_share": busy_share,
+        "system": lambda: phase_system(torch, fast_cuda, smi),
+        "reloc_async": lambda: phase_reloc_async(torch, fast_cuda, smi),
+    }
+    # `--phases a,b` runs only those (after device and build), for work on
+    # one phase; such a run prints no result line
+    only = None
+    if "--phases" in sys.argv[1:]:
+        only = sys.argv[sys.argv.index("--phases") + 1].split(",")
+        unknown = [p for p in only if p not in phases]
+        if unknown:
+            raise SystemExit(f"chip_smoke: unknown phases {unknown}; known: {list(phases)}")
+    for name, phase in phases.items():
+        if only is None or name in only:
+            report[name] = phase()
 
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
+    # a run of some phases does not overwrite a whole run's report
+    name = "chip_smoke.json" if only is None else "chip_smoke_phases.json"
+    with open(os.path.join(REPO, "chiprun_out", name), "w") as f:
         json.dump(report, f, indent=1)
+    if only is not None:
+        log(f"chip_smoke: phases {only} passed; a full run prints the result line")
+        return 0
 
     k = report["kernel"]["frame"]
     log(json.dumps({"kernels": [{
@@ -754,6 +1192,8 @@ def main() -> int:
         # the system phase's count: Slam.process over the 28 frames
         "launches": report["system"]["fast_launches"],
         "launches_slice_phase": report["slice"]["fast_launches"],
+        "launches_reloc_run": report["reloc_async"]["run_r"]["fast_launches"],
+        "launches_async_run": report["reloc_async"]["run_a"]["fast_launches"],
         "max_abs_err": report["kernel"]["max_abs_err"],
         # per frame: one launch over the 8 pyramid levels, the select included
         "ms": k["ms"], "plain_ms": k["plain_ms"],

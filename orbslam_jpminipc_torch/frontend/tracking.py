@@ -5,8 +5,8 @@ src/Tracking.cc: the FSM {NO_IMAGES_YET, NOT_INITIALIZED, INITIALIZING,
 WORKING, LOST} (Tracking.h:57-64), motion-model tracking
 (TrackWithMotionModel :594-628) with the window-search fallback
 (TrackPreviousFrame :526-592), local-map tracking (TrackLocalMap :630-662),
-the keyframe decision (NeedNewKeyFrame :665-703) and the motion-model
-velocity update (:297-310).
+the keyframe decision (NeedNewKeyFrame :665-703), BoW + PnP relocalization
+(Relocalisation :881-1050) and the motion-model velocity update (:297-310).
 
 Host control flow; every heavy step (matching, frustum checks, pose
 optimization) is one torch program on the tracker's device whose results
@@ -15,11 +15,14 @@ bookkeeping and the per-point visible/found statistics; map growth belongs
 to local mapping. The steady WORKING state runs the fused step
 (fused_track.py) synchronously.
 
-Relocalization needs a keyframe database (place recognition), which is
-not ported yet: without one the reference's `_relocalize` returns False,
-and so does this one, so LOST is terminal. Mapping runs synchronously
-after the frame that made a keyframe, so the mapper is always idle when
-tracking asks.
+Relocalization needs a keyframe database (place recognition,
+map/keyframe_db.py): with one, a LOST frame queries it for candidate
+keyframes and tries each with one program (mutual match + EPnP RANSAC +
+pose optimization) and the projection-search ladder; without one (no
+vocabulary) `_relocalize` returns False, as the reference's does, and LOST
+is terminal. The keyframe decision asks the System's `mapper_busy` hook:
+under asynchronous mapping the stage queue rations keyframes; when mapping
+runs synchronously the hook is None and the mapper is always idle.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import torch
 from ..config import SlamConfig
 from ..map.map_state import MapState
 from ..ops import matching
-from ..solvers import initializer, pose_opt
+from ..solvers import initializer, pnp, pose_opt
 from ..utils.device import resolve_device
 from ..utils.host import fetch
 from ..utils.tracing import get_tracer
@@ -145,10 +148,53 @@ def _track_local_map_prog(mp_xyz, mp_normal, mp_mind, mp_maxd, mp_desc,
     return visible, m.idx, m.mask, feat_q, has, res
 
 
+def _reloc_candidate_prog(sampler, f_desc, f_xy, f_angle, f_level, f_valid, w,
+                          kf_desc, kf_angle, kf_has, kf_xw, max_err2, K4):
+    """One relocalization candidate attempt as ONE program (Relocalisation
+    :881-1050 inner loop): BoW-free mutual matching against the candidate
+    keyframe, EPnP RANSAC over the matched points on minimal sets drawn by
+    `sampler(mask, n_hyp)`, then the 4-round pose optimization on the PnP
+    inliers."""
+    m = matching.mutual_match(
+        f_desc, f_angle, f_valid, kf_desc, kf_angle, kf_has,
+        max_dist=50, nn_ratio=0.75, check_rotation=True)
+    # per frame-feature world point through the candidate's bindings
+    xw = kf_xw[m.idx.to(torch.int64)]
+    valid = m.mask
+    res = pnp.solve_pnp(sampler(valid, pnp.N_HYP), xw, f_xy, valid, K4, max_err2)
+    sel = valid & res.inliers
+    opt = pose_opt.optimize_pose(res.R, res.t, xw, f_xy, w, sel, K4)
+    return m.idx, m.mask, res.success, sel, opt
+
+
+def _reloc_refine_prog(q_desc, uv_proj, q_level, valid_q, q_xw,
+                       f_desc, f_xy, f_level, f_valid, prev_xw, prev_has,
+                       w, R, t, K4, scale_factors,
+                       radius: float = 10.0, max_dist: int = 100):
+    """One post-PnP projection-search ladder rung as ONE program
+    (Tracking.cc:988-1027): project the candidate KF's points, re-match
+    within `radius` px (the reference runs a 10 px/dist-100 rung, then a
+    3 px/dist-64 rung when 30 <= inliers < 50), re-optimize on the union."""
+    m = matching.search_by_projection(
+        q_desc, uv_proj, q_level, valid_q,
+        f_desc, f_xy, f_level, f_valid, scale_factors,
+        radius=radius, max_dist=max_dist, nn_ratio=1.0, level_window=(-1, 1))
+    n = f_xy.shape[0]
+    nq = m.idx.shape[0]
+    feat_q = _scatter_bindings(m.idx, m.mask, n)
+    new_has = feat_q >= 0
+    has = prev_has | new_has
+    xw_f = torch.where(new_has[:, None],
+                       q_xw[torch.clamp(feat_q, 0, nq - 1).to(torch.int64)], prev_xw)
+    res = pose_opt.optimize_pose(R, t, xw_f, f_xy, w, has, K4)
+    return m.idx, m.mask, feat_q, has, res
+
+
 class Tracker:
-    def __init__(self, cfg: SlamConfig, state: MapState, device=None):
+    def __init__(self, cfg: SlamConfig, state: MapState, kfdb=None, device=None):
         self.cfg = cfg
         self.map = state
+        self.kfdb = kfdb  # map/keyframe_db.KeyFrameDatabase or None
         self.device = resolve_device(device)
         self.state = TrackState.NO_IMAGES_YET
         self.velocity: tuple[np.ndarray, np.ndarray] | None = None
@@ -164,6 +210,10 @@ class Tracker:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.sampler = lambda mask, n_hyp: initializer.sample_minimal_sets(
             self.generator, mask, n_hyp)
+        # PnP minimal sets of a relocalization candidate:
+        # pnp_sampler(mask, n_hyp) -> (n_hyp, 4) indices, the same hook
+        self.pnp_sampler = lambda mask, n_hyp: pnp.sample_minimal_sets(
+            mask, n_hyp, self.generator)
         self.bounds = self._compute_bounds()
         self.K4 = self._put(cfg.K4)
         self.scale_factors = self._put(cfg.scale_factors)
@@ -175,6 +225,7 @@ class Tracker:
         # callbacks wired by the System
         self.on_initialized = None   # fn(frame1, frame2, matches, init_result)
         self.on_new_keyframe = None  # fn(frame)
+        self.mapper_busy = None      # fn() -> bool (mbAcceptKeyFrames inverse)
 
     def _put(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -315,8 +366,8 @@ class Tracker:
         self.fused.slice_gen = st.mp_gen[pts].copy()
 
     def enter_fused(self, frame: Frame):
-        """(Re)arm the fused path from host state after init/fallback: a pose
-        upload + a slice refresh if none is resident."""
+        """(Re)arm the fused path from host state after init/reloc/fallback:
+        a pose upload + a slice refresh if none is resident."""
         if self.fused is None or frame.R is None:
             return
         self.fused.set_pose(frame.R, frame.t, velocity=self.velocity)
@@ -613,7 +664,10 @@ class Tracker:
         """Reference-exact NeedNewKeyFrame (Tracking.cc:665-703): post-reloc
         blackout only once the map holds > MaxFrames keyframes; a KF iff
         (timeout OR mapper idle OR tracking decaying hard) AND tracking
-        degraded. The synchronous mapper is always idle here."""
+        degraded. While the mapper is busy the keyframe is deferred, unless
+        tracking is decaying hard (the reference interrupts the running BA
+        and takes the keyframe, InterruptBA :692-698; the System's stage
+        queue applies those rules when the keyframe arrives)."""
         if self.ref_kf < 0:
             return False
         n_kf = int(self.map.kf_valid.sum())
@@ -621,7 +675,7 @@ class Tracker:
                 and n_kf > self.cfg.max_frames):
             return False
         ref_matches = int((self.map.kf_point[self.ref_kf] >= 0).sum())
-        idle = True
+        idle = self.mapper_busy is None or not self.mapper_busy()
         c1a = frame.frame_id >= self.last_kf_frame_id + self.cfg.max_frames
         c2 = self.n_inliers < 0.9 * ref_matches and self.n_inliers > 15
         if not c2:
@@ -642,6 +696,135 @@ class Tracker:
     # ------------------------------------------------------------------
 
     def _relocalize(self, frame: Frame) -> bool:
-        """Relocalization needs a keyframe database; without one (vocab is
-        None) LOST is terminal, as in the reference."""
+        """Candidates from the keyframe database, then per candidate ONE
+        program + ONE host read. Without a database (no vocabulary) LOST is
+        terminal, as in the reference."""
+        if self.kfdb is None:
+            return False
+        tracer = get_tracer()
+        qbow = self.kfdb.query_bow(frame.desc, frame.valid)
+        self.kfdb.set_covisibility(self.map.covisibility())
+        cands = self.kfdb.detect_reloc_candidates(qbow)
+        tracer.log("reloc_candidates", frame=int(frame.frame_id),
+                   cands=[int(c) for c in cands])
+        st, cfg = self.map, self.cfg
+        max_err = 5.991 * cfg.sigma2[np.clip(frame.level, 0, cfg.n_levels - 1)]
+        w = cfg.inv_sigma2[np.clip(frame.level, 0, cfg.n_levels - 1)]
+        p = self._put
+        for kf in cands:
+            kf_point = st.kf_point[kf]
+            mp_safe = np.clip(kf_point, 0, st.max_mp - 1)
+            kf_has = st.kf_feat_valid[kf] & (kf_point >= 0) & st.mp_valid[mp_safe]
+            # mutual match + EPnP RANSAC + 4-round pose optimization on the
+            # PnP inliers
+            with tracer.stage("reloc_candidate"):
+                idx, mask, pnp_ok, sel, opt = _reloc_candidate_prog(
+                    self.pnp_sampler,
+                    self._feat(frame, "desc"), self._feat(frame, "xy_un"),
+                    self._feat(frame, "angle"), self._feat(frame, "level"),
+                    self._feat(frame, "valid"),
+                    p(w.astype(np.float32)),
+                    p(st.kf_desc[kf]), p(st.kf_angle[kf]),
+                    p(kf_has), p(st.mp_xyz[mp_safe]),
+                    p(max_err.astype(np.float32)), self.K4,
+                )
+                idx, mask, pnp_ok, sel, R, t, inliers, n_inl = fetch(
+                    idx, mask, pnp_ok, sel, opt.R, opt.t, opt.inliers, opt.n_inliers)
+            tracer.log("reloc_attempt", frame=int(frame.frame_id),
+                       kf=int(kf), n_match=int(mask.sum()),
+                       pnp_ok=bool(pnp_ok))
+            if mask.sum() < 15 or not bool(pnp_ok):
+                continue
+            # the frame is rewritten before the candidate is known to
+            # succeed: _track_local_map reads these bindings
+            mp = np.where(sel, kf_point[idx], -1)
+            frame.point[:] = -1
+            frame.point[sel] = mp[sel]
+            frame.point_gen[sel] = st.mp_gen[mp[sel]]
+            frame.outlier = sel & ~inliers
+            frame.R = R
+            frame.t = t
+            self.n_inliers = int(n_inl)
+            tracer.log("reloc_opt", frame=int(frame.frame_id), kf=int(kf),
+                       n_inliers=self.n_inliers)
+            if self.n_inliers >= 10:
+                if self.n_inliers >= 50 or self._reloc_refine(frame, kf):
+                    self.last_reloc_frame_id = frame.frame_id
+                    return True
         return False
+
+    def _reloc_refine(self, frame: Frame, kf: int) -> bool:
+        """The reference's full post-PnP refinement ladder
+        (Tracking.cc:988-1027): a 10 px projection-search rung, and, when
+        it lands in [30, 50) inliers, a second, tighter 3 px / ORB-dist-64
+        rung from the once-refined pose. Accept at >= 50."""
+        if self._reloc_refine_rung(frame, kf, radius=10.0, max_dist=100):
+            return True
+        if 30 <= self.n_inliers < 50:
+            return self._reloc_refine_rung(frame, kf, radius=3.0, max_dist=64)
+        return False
+
+    def _reloc_refine_rung(self, frame: Frame, kf: int, radius: float,
+                           max_dist: int) -> bool:
+        """One projection-search + re-optimize rung: ONE program, ONE read."""
+        st, cfg = self.map, self.cfg
+        q = st.kf_point[kf].copy()
+        valid_q = q >= 0
+        mpid = np.clip(q, 0, st.max_mp - 1)
+        xw = st.mp_xyz[mpid]
+        xc = xw @ frame.R.T + frame.t
+        z = xc[:, 2]
+        uv_proj = np.stack(
+            [
+                cfg.fx * xc[:, 0] / np.maximum(z, 1e-9) + cfg.cx,
+                cfg.fy * xc[:, 1] / np.maximum(z, 1e-9) + cfg.cy,
+            ],
+            axis=1,
+        ).astype(np.float32)
+        valid_q &= (z > 0) & st.mp_valid[mpid]
+        lp = frame.point.copy()
+        lp[frame.outlier] = -1
+        prev_has = lp >= 0
+        prev_xw = st.mp_xyz[np.clip(lp, 0, st.max_mp - 1)]
+        w = cfg.inv_sigma2[np.clip(frame.level, 0, cfg.n_levels - 1)]
+        p = self._put
+        with get_tracer().stage("reloc_refine"):
+            _idx, _mask, feat_q, has, res = _reloc_refine_prog(
+                p(st.mp_desc[mpid]), p(uv_proj),
+                p(st.kf_level[kf]), p(valid_q), p(xw.astype(np.float32)),
+                self._feat(frame, "desc"), self._feat(frame, "xy_un"),
+                self._feat(frame, "level"), self._feat(frame, "valid"),
+                p(prev_xw), p(prev_has),
+                p(w.astype(np.float32)),
+                p(np.asarray(frame.R, np.float32)), p(np.asarray(frame.t, np.float32)),
+                self.K4, self.scale_factors,
+                radius=radius, max_dist=max_dist,
+            )
+            feat_q, has, R, t, inliers, n_inl = fetch(
+                feat_q, has, res.R, res.t, res.inliers, res.n_inliers)
+        new_has = feat_q >= 0
+        fqc = np.clip(feat_q, 0, len(q) - 1)
+        frame.point = np.where(
+            new_has, q[fqc], np.where(prev_has, lp, -1)
+        ).astype(np.int32)
+        frame.point_gen = np.where(
+            new_has, st.mp_gen[np.clip(q[fqc], 0, st.max_mp - 1)],
+            frame.point_gen,
+        ).astype(np.int32)
+        frame.outlier = has & ~inliers
+        frame.R = R
+        frame.t = t
+        self.n_inliers = int(n_inl)
+        get_tracer().log("reloc_refine", frame=int(frame.frame_id),
+                         kf=int(kf), radius=radius,
+                         n_new=int(new_has.sum()),
+                         n_inliers=self.n_inliers)
+        return self.n_inliers >= 50
+
+    def force_relocalization(self):
+        """Loop closing tells the tracker the map moved under it
+        (Tracking::ForceRelocalisation, Tracking.cc:1052-1064)."""
+        self.state = TrackState.LOST
+        self.velocity = None
+        if self.fused is not None:
+            self.fused.invalidate()

@@ -29,7 +29,9 @@ def fundamental_from_poses(R1, t1, R2, t2, K4) -> torch.Tensor:
     F12 = K^-T [t12]x R12 K^-1."""
     R12 = R1 @ R2.transpose(-1, -2)
     t12 = -(R12 @ t2[..., None])[..., 0] + t1
-    Kinv = torch.linalg.inv(K_matrix(K4))
+    # inv_ex: no error check, so no wait for the device (K is triangular
+    # with a positive diagonal)
+    Kinv = torch.linalg.inv_ex(K_matrix(K4))[0]
     return Kinv.transpose(-1, -2) @ hat(t12) @ R12 @ Kinv
 
 

@@ -56,11 +56,18 @@ class DeviceMap:
 
     def put(self, a) -> torch.Tensor:
         """A host array as a tensor on the mirror's device (int64 indices
-        stay int64; float64 becomes float32)."""
+        stay int64; float64 becomes float32). On a card the array is staged
+        in pinned host memory and the copy queued behind the stream's work:
+        a plain `.to(device)` of pageable memory waits for the stream to
+        drain, which would make every upload of a mapping stage wait for
+        the programs in flight."""
         a = np.asarray(a)
         if a.dtype == np.float64:
             a = a.astype(np.float32)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     # --- host -> device sync ------------------------------------------
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.host import fetch
+from ..utils.host import fetch_async
 
 
 @dataclasses.dataclass
@@ -70,9 +70,10 @@ class MapState:
     # cached covisibility matrix; None = stale. Every observation-topology
     # mutation (add/remove/replace observation, KF insert/erase) invalidates
     # it, so tracking frames between keyframes reuse one matrix instead of
-    # paying a device round-trip per frame.
+    # paying the product per frame.
     _covis_cache: np.ndarray | None = None
-    # where the covisibility product and the host-path attrs pass run
+    # the device of the system this map belongs to: the map's arrays are
+    # host numpy, its programs run over the DeviceMap's tensors there
     device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cpu"))
 
     @staticmethod
@@ -319,9 +320,12 @@ class MapState:
         """(MAX_KF, MAX_KF) int32 shared-point counts.
 
         Cached until the observation topology changes: tracking queries this
-        every frame, but it only changes per keyframe event. One float32
-        matmul of the valid-KF membership rows on `self.device`
-        (`_covis_matmul`), read back once."""
+        every frame, but it only changes per keyframe event. Computed as one
+        host BLAS matmul over the valid-KF membership submatrix, as the
+        reference does: graph bookkeeping is latency-bound, and a device
+        product would queue behind whatever mapping program is in flight
+        and make its caller wait for it. Exact: every sum is an integer
+        below 2^24."""
         if self._covis_cache is not None:
             return self._covis_cache
         C = np.zeros((self.max_kf, self.max_kf), np.int32)
@@ -332,8 +336,7 @@ class MapState:
             sel = pts >= 0
             rows = np.broadcast_to(np.arange(len(valid))[:, None], pts.shape)
             M[rows[sel], pts[sel]] = 1.0
-            (counts,) = fetch(_covis_matmul(torch.from_numpy(M).to(self.device)))
-            C[np.ix_(valid, valid)] = counts
+            C[np.ix_(valid, valid)] = (M @ M.T).astype(np.int32)
         self._covis_cache = C
         return C
 
@@ -376,7 +379,8 @@ class MapState:
         sf = np.asarray(scale_factors, np.float32)
         outs = attrs_kernel(dmap, obs_kf, obs_feat, self.mp_xyz[ids].astype(np.float32),
                             ref_slot, sf)
-        return ids[:n_real], self.mp_gen[ids[:n_real]].copy(), outs
+        # the read is queued now: whoever applies it may ask `done()` first
+        return ids[:n_real], self.mp_gen[ids[:n_real]].copy(), fetch_async(*outs)
 
     def apply_point_attributes(self, pending):
         """Read back and write an attrs computation. Generation-checked:
@@ -384,7 +388,7 @@ class MapState:
         if pending is None:
             return np.zeros(0, np.int64)
         ids, gens, outs = pending
-        desc, normal, dmin, dmax = fetch(*outs)
+        desc, normal, dmin, dmax = outs.result()
         n_real = len(ids)
         fresh = self.mp_gen[ids] == gens
         ids = ids[fresh]
@@ -393,13 +397,6 @@ class MapState:
         self.mp_min_dist[ids] = dmin[:n_real][fresh]
         self.mp_max_dist[ids] = dmax[:n_real][fresh]
         return ids
-
-
-def _covis_matmul(M: torch.Tensor) -> torch.Tensor:
-    """Shared-point counts of 0/1 membership rows: M @ M.T in float32 (the
-    reference: an int8 dot with int32 accumulation). Exact: every partial
-    sum is an integer below 2^24 (max_mp <= 16384) and TF32 is off."""
-    return (M @ M.T).to(torch.int32)
 
 
 def attrs_math(descs, valid, xyz, centers, levels, ref_slot, scale_factors):

@@ -33,3 +33,10 @@ def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     p1 = b1.sum(dim=-1).to(torch.int32)
     p2 = b2.sum(dim=-1).to(torch.int32)
     return p1[..., :, None] + p2[..., None, :] - 2 * dot
+
+
+def hamming_pairwise(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """Element-aligned Hamming distance: (..., 32) x (..., 32) -> (...,) int32
+    (the operands broadcast). The set bits of the XOR are counted by
+    unpacking them: exact in integers."""
+    return popcount_rows(torch.bitwise_xor(d1, d2))

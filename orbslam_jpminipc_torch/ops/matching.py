@@ -151,6 +151,30 @@ def window_search(
     return Matches(best_idx, best, ok)
 
 
+def mutual_match(
+    desc1, angle1, valid1,
+    desc2, angle2, valid2,
+    max_dist: int = TH_LOW,
+    nn_ratio: float = 0.75,
+    check_rotation: bool = True,
+    extra_mask: torch.Tensor | None = None,
+) -> Matches:
+    """Unconstrained descriptor matching (SearchByBoW family,
+    ORBmatcher.cc:155-284 and :715-850; the BoW node grouping only prunes
+    a brute-force search, so here it is the full masked matrix)."""
+    ham = hamming_matrix(desc1, desc2)
+    mask = valid1[..., :, None] & valid2[..., None, :]
+    if extra_mask is not None:
+        mask = mask & extra_mask
+    best_idx, best, second = masked_best2(ham, mask)
+    ok = (best <= max_dist) & valid1
+    ok = ok & ((best < nn_ratio * second) | (second >= _BIG))
+    if check_rotation:
+        ok = rotation_consistency(angle1 - _gather(angle2, best_idx), ok)
+    ok = enforce_unique(best_idx, best, ok, desc2.shape[-2])
+    return Matches(best_idx, best, ok)
+
+
 def search_for_triangulation(
     desc1, xy1, angle1, level1, has_point1, valid1,
     desc2, xy2, angle2, level2, has_point2, valid2,

@@ -6,11 +6,15 @@ src/LocalMapping.cc: ProcessNewKeyFrame (:145-195), MapPointCulling
 covisible keyframes + 6 validity gates), SearchInNeighbors (:395-472,
 two-way fusion), local BA (:84), KeyFrameCulling (:546-600). The
 reference's polling thread becomes a deterministic per-keyframe call from
-the System: every stage of a keyframe runs back to back (`process`).
+the System: either every stage of a keyframe back to back (`process`), or
+one stage at a time spread over later frames (`run_stage`, the System's
+stage queue under `cfg.async_mapping`).
 
-The heavy stages keep the reference's split into a device half ("*_d",
-the torch program over the device mirror) and a host half ("*_m", one
-host read of the program's results + the bookkeeping).
+The heavy stages are split into a device half ("*_d": the torch program
+over the device mirror, ending with its results' read queued into pinned
+host memory, `utils/host.fetch_async`) and a host half ("*_m": take the
+read + the bookkeeping). `stage_ready` asks the queued read's event
+whether a host half can run without waiting for the device.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from ..map import culling
 from ..map.device_map import DeviceMap, fuse_kernel, local_ba_kernel, tri_kernel
 from ..map.map_state import MapState
 from ..solvers import ba
-from ..utils.host import fetch
+from ..utils.host import fetch_async
 from ..utils.tracing import get_tracer
 
 # fixed fuse-target capacity (first + second covisibility ring, strongest
@@ -34,9 +38,10 @@ TRI_NEIGHBORS = 20
 
 
 class LocalMapper:
-    def __init__(self, cfg: SlamConfig, state: MapState, device=None):
+    def __init__(self, cfg: SlamConfig, state: MapState, kfdb=None, device=None):
         self.cfg = cfg
         self.map = state
+        self.kfdb = kfdb  # map/keyframe_db.KeyFrameDatabase or None
         self.probation: list = []  # (point, generation) under culling
         # device-resident mirror of the map arrays: stage kernels gather
         # their operands on the device, only indices ship per call
@@ -67,6 +72,8 @@ class LocalMapper:
             victim = culling.force_free_keyframe(st)
             if victim is None:
                 return -1
+            if self.kfdb is not None:
+                self.kfdb.erase(victim)
             kf = st.add_keyframe(
                 frame.R, frame.t, frame.xy_un, frame.level, frame.angle,
                 frame.desc, frame.valid, frame_id=frame.frame_id,
@@ -89,6 +96,8 @@ class LocalMapper:
         self._attrs_pending.extend(int(p) for p in frame.point[tracked])
         covis = st.covisibility()
         st.update_spanning_tree(kf, covis[kf])
+        if self.kfdb is not None:
+            self.kfdb.add(kf, st.kf_desc[kf], st.kf_feat_valid[kf])
         self.dmap.sync_keyframe(st, kf)
         return kf
 
@@ -98,18 +107,42 @@ class LocalMapper:
     STAGES = ("cull_points", "triangulate_d", "triangulate_m",
               "fuse_d", "fuse_m", "ba_d", "ba_m", "ba2_d", "ba2_m",
               "cull_kf")
+    DISPATCH_STAGES = ("triangulate_d", "fuse_d", "ba_d", "ba2_d")
+
+    def stage_ready(self, kf: int, stage: str) -> bool:
+        """True when running `stage` now would not wait for the device: a
+        host half whose queued read has not landed is not ready. The only
+        device call is the read's event query. The System skips the mapping
+        tick for a frame instead of stalling the tracker."""
+        if stage == "triangulate_m":
+            p = self._tri_pending
+            return p is None or p[0] != kf or p[2].done()
+        if stage == "fuse_m":
+            p = self._fuse_pending
+            return p is None or p[0] != kf or p[4].done()
+        if stage == "ba_m":
+            p = self._ba_pending
+            return p is None or p[0] != kf or p[7].done()
+        if stage == "ba2_m":
+            p = self._ba2_pending
+            return p is None or p[0] != kf or p[6].done()
+        return True
 
     def run_stage(self, kf: int, stage: str):
         # apply the previous stage's deferred attrs writeback first: its
-        # device program ran while the host did other work
-        self.drain_attrs()
+        # device program ran while the host did other work (kept pending
+        # rather than waited for when its read has not landed yet)
+        self.drain_attrs(force=False)
         with get_tracer().stage(f"map_{stage}"):
             self._run_stage(kf, stage)
 
-    def drain_attrs(self):
+    def drain_attrs(self, force: bool = True):
         """Apply a launched attrs computation (one host read + the host
-        writeback + the mirror sync)."""
+        writeback + the mirror sync). force=False keeps it pending when
+        its queued read has not landed yet."""
         pending = self._attrs_inflight
+        if pending is not None and not (force or pending[2].done()):
+            return
         self._attrs_inflight = None
         if pending is not None:
             with get_tracer().stage("attrs_drain"):
@@ -159,6 +192,11 @@ class LocalMapper:
         covis = self.map.covisibility()
         neighbors = np.nonzero(covis[kf] >= 15)[0]
         erased = culling.cull_redundant_keyframes(self.map, neighbors[neighbors != kf])
+        # culled KFs leave the place-recognition index too (KeyFrame.cc:586-587
+        # -> KeyFrameDatabase::erase), so they stop competing as candidates
+        if self.kfdb is not None:
+            for k in erased:
+                self.kfdb.erase(k)
         if erased:
             get_tracer().log("kf_culled", kf=int(kf),
                              erased=[int(k) for k in erased])
@@ -215,7 +253,8 @@ class LocalMapper:
             np.broadcast_to(active_mask, (B, st.n_feat)).copy(),
             cfg.K4, cfg.sigma2, cfg.scale_factors,
         )
-        self._tri_pending = (kf, active, outs)
+        # the read is queued now and lands while the host goes on
+        self._tri_pending = (kf, active, fetch_async(*outs))
 
     def triangulate_merge(self, kf: int):
         """Host half: claim features, allocate points, wire observations.
@@ -229,7 +268,7 @@ class LocalMapper:
         if not st.kf_valid[kf]:
             return
         with get_tracer().stage("tri_m_read"):
-            cnt, f1c, f2c, xwc = fetch(*outs)
+            cnt, f1c, f2c, xwc = outs.result()
 
         # sequential claim: a feature triangulated against an earlier (more
         # covisible) neighbor is excluded from later ones
@@ -337,7 +376,7 @@ class LocalMapper:
         ]).astype(np.int32)
         dst = np.concatenate([sel.astype(np.int64), kf_row])
         outs = fuse_kernel(self.dmap, q, row_valid, dst, cfg.K4, cfg.scale_factors)
-        self._fuse_pending = (kf, sel, n_act, q, outs)
+        self._fuse_pending = (kf, sel, n_act, q, fetch_async(*outs))
 
     def fuse_merge(self, kf: int):
         """Host half: merge bookkeeping + the keyframe's ONE attrs pass over
@@ -351,7 +390,7 @@ class LocalMapper:
         _, sel, n_act, q, outs = self._fuse_pending
         self._fuse_pending = None
         with tracer.stage("fuse_m_read"):
-            cnt, srcs, dsts = fetch(*outs)
+            cnt, srcs, dsts = outs.result()
         T = FUSE_TARGETS
         C = srcs.shape[1]
         touched: list[int] = []
@@ -373,7 +412,9 @@ class LocalMapper:
         """The per-keyframe attrs pass: one device program over the union
         of the KF's live points, the points created this round, and
         fuse-touched points. It is applied at the next stage."""
-        self.drain_attrs()
+        # a still-pending previous attrs pass must land first: its slot is
+        # about to be overwritten
+        self.drain_attrs(force=True)
         st, cfg = self.map, self.cfg
         pts = st.kf_point[kf] if st.kf_valid[kf] else np.zeros(0, np.int64)
         live = np.unique(pts[pts >= 0]) if len(pts) else pts
@@ -548,7 +589,7 @@ class LocalMapper:
         # snapshot generations: points may be culled by other stages
         # before the writeback; never write into a recycled slot
         self._ba_pending = (kf, prob, all_kfs, pts, st.mp_gen[pts].copy(),
-                            obs_src, obs_idx, res)
+                            obs_src, obs_idx, fetch_async(*res))
 
     def ba_merge(self, kf: int):
         """Read stage 1's result and hold it: NO map writeback yet (the
@@ -558,7 +599,7 @@ class LocalMapper:
         _, prob, all_kfs, pts, gens, obs_src, obs_idx, res = self._ba_pending
         self._ba_pending = None
         with get_tracer().stage("ba_m_read"):
-            res = ba.BAResult(*fetch(*res))
+            res = ba.BAResult(*res.result())
         self._ba_stage1 = (kf, prob, all_kfs, pts, gens, obs_src, obs_idx, res)
 
     def ba2_dispatch(self, kf: int):
@@ -574,7 +615,7 @@ class LocalMapper:
             obs_srckf, obs_valid2, prob.K4,
             self.cfg.inv_sigma2.astype(np.float32), iterations=10,
         )
-        self._ba2_pending = (kf, prob, all_kfs, pts, gens, obs_src, res, res1)
+        self._ba2_pending = (kf, prob, all_kfs, pts, gens, obs_src, fetch_async(*res), res1)
 
     def ba2_merge(self, kf: int):
         """Writeback + outlier erasure after stage 2 (Optimizer.cc:496-534;
@@ -585,7 +626,7 @@ class LocalMapper:
         self._ba2_pending = None
         self._ba_stage1 = None
         with get_tracer().stage("ba_m_read"):
-            res = ba.BAResult(*fetch(*res))
+            res = ba.BAResult(*res.result())
         outlier = res1.obs_outlier | res.obs_outlier
         self._ba_writeback(prob, all_kfs, pts, gens, obs_src,
                            res.kf_R, res.kf_t, res.points, outlier)

@@ -1,16 +1,21 @@
 """The SLAM system (counterpart of orbslam_jpminipc_tpu/pipeline/system.py).
 
-src/main.cc: builds the map, the tracker and the local mapper, wires them
-together and exposes a per-frame `process()`. Instead of the reference's
-mutex-synchronized threads, stages run deterministically: tracking per
-frame, and every mapping stage of a new keyframe right after the frame
-that made it (the reference package's synchronous path). The keyframe
-trajectory (main.cc:226-245, TUM order) comes from `keyframe_trajectory()`.
+src/main.cc: builds the map, the keyframe database, the tracker and the
+local mapper, wires them together and exposes a per-frame `process()`.
+Instead of the reference's mutex-synchronized threads, stages run
+deterministically: tracking per frame, and the mapping stages of a new
+keyframe either right after the frame that made it, or
+(`cfg.async_mapping`, the reference package's default) queued and worked
+off over the following frames, a few stages a frame and never one whose
+device program has not finished. The non-empty queue is the mapper-busy
+gate of the keyframe decision. With a vocabulary every keyframe is indexed
+in a `KeyFrameDatabase` and a LOST tracker relocalizes against it. The
+keyframe trajectory (main.cc:226-245, TUM order) comes from
+`keyframe_trajectory()`.
 
 Not ported yet, and refused instead of being run some other way:
-`pipelined_tracking` (a workaround for the reference's device link),
-`async_mapping` (the stage queue with the mapper-busy gate), and a
-vocabulary (place recognition, relocalization and loop closing).
+`pipelined_tracking` (a workaround for the reference's device link) and
+loop closing (`enable_loop_closing=True` with a vocabulary).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from ..config import SlamConfig
 from ..frontend.frame import Frame, build_frame
 from ..frontend.tracking import Tracker, TrackState
 from ..map.device_map import DeviceMap
+from ..map.keyframe_db import KeyFrameDatabase
 from ..map.map_state import MapState
 from ..solvers import ba
 from ..utils.device import resolve_device
@@ -29,26 +35,35 @@ from .local_mapping import LocalMapper
 
 
 class Slam:
-    def __init__(self, cfg: SlamConfig, vocab=None, device=None):
+    def __init__(self, cfg: SlamConfig, vocab=None, enable_loop_closing: bool = True,
+                 device=None):
         if cfg.pipelined_tracking:
             raise ValueError("pipelined_tracking=True is not supported: set it to False")
-        if cfg.async_mapping:
-            raise ValueError("async_mapping=True is not ported yet: set it to False")
-        if vocab is not None:
-            raise ValueError("place recognition (a vocabulary) is not ported yet: pass vocab=None")
+        if vocab is not None and enable_loop_closing:
+            raise ValueError("loop closing is not ported yet: pass enable_loop_closing=False "
+                             "with a vocabulary")
         self.cfg = cfg
         self.device = resolve_device(device)
         # keyframe feature arrays sized for the 2x init extractor output
         self.map = MapState.create(cfg.max_kf, cfg.max_mp, 2 * cfg.n_features, cfg.max_obs,
                                    device=self.device)
-        self.tracker = Tracker(cfg, self.map, device=self.device)
-        self.mapper = LocalMapper(cfg, self.map, device=self.device)
+        self.kfdb = (KeyFrameDatabase(vocab, cfg.max_kf, device=self.device)
+                     if vocab is not None else None)
+        self.tracker = Tracker(cfg, self.map, self.kfdb, device=self.device)
+        self.mapper = LocalMapper(cfg, self.map, self.kfdb, device=self.device)
         self.tracker.on_initialized = self._create_initial_map
         self.tracker.on_new_keyframe = self._on_new_keyframe
         self.tracker.dmap = self.mapper.dmap
+        if cfg.async_mapping:
+            self.tracker.mapper_busy = self._mapper_busy
         self.frame_count = 0
         self.trajectory: list[tuple[float, np.ndarray, np.ndarray]] = []
         self.tracer = get_tracer()
+        # amortized mapping queue: (kf, [remaining stages]), worked off a few
+        # stages a frame when cfg.async_mapping, in place of the reference's
+        # mapper thread (main.cc:182, LocalMapping.cc:52-127)
+        self.pending: list[tuple[int, list[str]]] = []
+        self._inlier_peak = 0.0
         self._last_result: tuple[TrackState, Frame | None] = (TrackState.NO_IMAGES_YET, None)
 
     # ------------------------------------------------------------------
@@ -59,6 +74,19 @@ class Slam:
         frame_id = self.frame_count
         self.frame_count += 1
         tr = self.tracker
+        # while tracking quality is degrading (against a decaying peak of
+        # the inlier count), interrupt BA and finish the mapper's backlog
+        # NOW, every degraded frame, so the keyframe the tracker needs is
+        # not refused by the busy gate (InterruptBA dynamics,
+        # Tracking.cc:692-698)
+        self._inlier_peak = 0.97 * self._inlier_peak
+        if tr.state == TrackState.WORKING:
+            self._inlier_peak = max(float(tr.n_inliers), self._inlier_peak)
+        degraded = (tr.n_inliers < self.cfg.pipeline_guard_inliers
+                    or tr.n_inliers < 0.7 * self._inlier_peak)
+        if degraded and self.pending:
+            with self.tracer.stage("mapping_hard_drain"):
+                self._drain_mapping_hard()
         if tr.fused_usable(frame_id):
             # steady state: extraction happens inside the fused step
             with self.tracer.stage("track"):
@@ -80,7 +108,16 @@ class Slam:
                 # (re)arm the fused path for the next frame
                 tr.enter_fused(frame)
         self._after_track(state, frame, timestamp)
+        self._mapping_tick()
         return self._last_result
+
+    def _mapper_busy(self) -> bool:
+        """The mbAcceptKeyFrames gate (Tracking.cc:679 / LocalMapping.cc:
+        529-539): busy while the stage queue is non-empty. This
+        backpressure is load-bearing: it rations keyframes the way the
+        reference's mapper thread does (a looser gate floods the map with
+        tiny-baseline keyframes and tracking collapses)."""
+        return bool(self.pending)
 
     def _after_track(self, state: TrackState, frame: Frame, timestamp: float):
         """Trajectory entry + auto-reset after a failed start
@@ -92,9 +129,68 @@ class Slam:
             self.reset()
         self._last_result = (state, frame)
 
+    def _mapping_tick(self):
+        """Amortized mapping: run pending stages after the pose is out (the
+        tracker never waits for the mapper). Stages are either launches or
+        cheap host halves, so run until a second launch is out, a host
+        half's read has not landed, 8 stages ran, or the queue empties."""
+        if not self.pending:
+            return
+        with self.tracer.stage("mapping"):
+            dispatched = 0
+            for _ in range(8):
+                if not self.pending:
+                    break
+                kf, stages = self.pending[0]
+                if (self.map.kf_valid[kf]
+                        and not self.mapper.stage_ready(kf, stages[0])):
+                    # the stage would wait for a device program still in
+                    # flight: skip mapping this frame, the tracker keeps
+                    # streaming (the reference's tracker never waits for
+                    # its mapper thread either)
+                    self.tracer.log("mapping_not_ready", kf=int(kf), stage=stages[0])
+                    break
+                stage = self._run_pending_stage()
+                if stage in LocalMapper.DISPATCH_STAGES:
+                    # at most two programs in flight per tick
+                    dispatched += 1
+                    if dispatched >= 2:
+                        break
+        # mapping stages mutate the map: refresh the device-resident
+        # tracking slice so the fused path sees it
+        self.tracker.refresh_fused_slice()
+
+    def _drain_mapping_hard(self):
+        """Finish every pending mapping stage NOW, aborting bundle
+        adjustment the way a new keyframe would (InterruptBA,
+        LocalMapping.cc:541-544): the 5-iteration first BA stage still
+        runs (the reference's aborted BA also writes back the iterations
+        it completed, Optimizer.cc:450-452), only the second 10-iteration
+        stage is skipped. Waits for the programs in flight: used only when
+        the tracker is degrading and needs the mapper idle to insert a
+        keyframe."""
+        while self.pending:
+            kf, stages = self.pending[0]
+            if "ba2_d" in stages:
+                i = stages.index("ba2_d")
+                del stages[i:i + 2]
+                # ba_abort writes the 5-iteration state back to the map:
+                # after ba_m when stage 1 is still queued, immediately in
+                # its place when stage 1 already ran
+                stages.insert(
+                    i if "ba_d" not in stages else stages.index("ba_m") + 1,
+                    "ba_abort")
+                self.tracer.log("ba_aborted", kf=int(kf), by="hard_drain")
+            self._run_pending_stage()
+        self.mapper.drain_attrs(force=True)
+        self.tracker.refresh_fused_slice()
+
     def finish(self):
-        """Apply what is still pending at the end of a sequence (the
-        reference joins its threads on shutdown, main.cc:222)."""
+        """Work off every pending mapping stage and apply what is still in
+        flight at the end of a sequence (the reference joins its threads on
+        shutdown, main.cc:222)."""
+        while self.pending:
+            self._run_pending_stage()
         self.mapper.drain_attrs()
         self.tracker.refresh_fused_slice()
 
@@ -103,6 +199,8 @@ class Slam:
         cfg = self.cfg
         self.map = MapState.create(cfg.max_kf, cfg.max_mp, 2 * cfg.n_features, cfg.max_obs,
                                    device=self.device)
+        if self.kfdb is not None:
+            self.kfdb.clear()
         tr = self.tracker
         tr.map = self.map
         tr.state = TrackState.NOT_INITIALIZED
@@ -124,6 +222,7 @@ class Slam:
         m._attrs_inflight = None
         m.dmap = DeviceMap(self.map.max_kf, self.map.n_feat, self.map.max_mp, device=self.device)
         tr.dmap = m.dmap
+        self.pending = []
 
     # ------------------------------------------------------------------
     # initial map (Tracking::CreateInitialMap, Tracking.cc:422-524)
@@ -177,6 +276,9 @@ class Slam:
         dm.sync_keyframe(st, kf1)
         dm.sync_points(st, ids)
         st.update_point_attributes(ids, cfg.scale_factors, dmap=dm)
+        if self.kfdb is not None:
+            self.kfdb.add(kf0, st.kf_desc[kf0], st.kf_feat_valid[kf0])
+            self.kfdb.add(kf1, st.kf_desc[kf1], st.kf_feat_valid[kf1])
         covis = st.covisibility()
         st.update_spanning_tree(kf1, covis[kf1])
         dm.sync_points(st, ids)
@@ -236,12 +338,52 @@ class Slam:
     # ------------------------------------------------------------------
 
     def _on_new_keyframe(self, frame: Frame):
+        if self.cfg.async_mapping:
+            # insert synchronously (the tracker needs the reference KF and
+            # its observations), then queue the heavy stages
+            with self.tracer.stage("mapping"):
+                kf = self.mapper.insert_keyframe(frame)
+            if kf < 0:
+                return  # capacity-refused insertion (alloc_kf)
+            self.tracker.ref_kf = kf
+            self.tracker.refresh_fused_slice()
+            for qkf, stages in self.pending:
+                # InterruptBA semantics (LocalMapping.cc:541-544 -> g2o
+                # setForceStopFlag, Optimizer.cc:58-59):
+                # - BA not yet started: cancel it entirely;
+                # - stage 1 running/done but stage 2 not launched: abort,
+                #   write back the 5-iteration state without the outlier
+                #   erase passes (Optimizer.cc:450-452 + bDoMore=false)
+                if "ba_d" in stages:
+                    for s_ in ("ba_d", "ba_m", "ba2_d", "ba2_m"):
+                        if s_ in stages:
+                            stages.remove(s_)
+                    self.tracer.log("ba_cancelled", kf=int(qkf), by=int(kf))
+                elif "ba2_d" in stages:
+                    i = stages.index("ba2_d")
+                    del stages[i:i + 2]
+                    stages.insert(i, "ba_abort")
+                    self.tracer.log("ba_aborted", kf=int(qkf), by=int(kf))
+            # the reference queues a "loop" stage after these; loop closing
+            # is refused in the constructor, so the stage is not queued
+            self.pending.append((kf, list(self.mapper.STAGES)))
+            return
         with self.tracer.stage("mapping"):
             kf = self.mapper.process(frame)
         if kf < 0:
             return  # capacity-refused insertion (alloc_kf)
         self.tracker.ref_kf = kf
         self.tracker.refresh_fused_slice()
+
+    def _run_pending_stage(self) -> str:
+        kf, stages = self.pending[0]
+        stage = stages.pop(0)
+        if not stages:
+            self.pending.pop(0)
+        if not self.map.kf_valid[kf]:
+            return stage  # culled while queued
+        self.mapper.run_stage(kf, stage)
+        return stage
 
     # ------------------------------------------------------------------
 

@@ -5,6 +5,13 @@ The reference takes each program's results in one `jax.device_get` of a
 tuple; `fetch` does the same here: the tensors' bytes are concatenated on
 their device and copied to the host once, then split into numpy arrays.
 
+`fetch_async` is the same read without the wait: the copy is queued into
+pinned host memory behind the work already on the stream, and the handle
+it returns says whether the copy has landed (`done()`, which asks an event
+and never waits) and hands the arrays out (`result()`, which waits if it
+must). A mapping stage launches its program and queues the read; a later
+frame asks `done()` and takes the result only when it costs no wait.
+
 `READS` counts the copies made from a CUDA device (a CPU tensor costs no
 read), so a caller can report host reads per frame.
 """
@@ -20,20 +27,76 @@ def _np_dtype(dt: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dt).numpy().dtype
 
 
+def _on_cpu(tensors) -> bool:
+    devs = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devs):
+        return True
+    if len(devs) != 1:
+        raise ValueError(f"fetch: tensors on several devices {devs}")
+    return False
+
+
+def _flatten(tensors) -> torch.Tensor:
+    """The tensors' bytes, concatenated on their device."""
+    return torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+
+
+def _split(buf: np.ndarray, layout) -> tuple[np.ndarray, ...]:
+    out, off = [], 0
+    for dtype, shape in layout:
+        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        out.append(buf[off:off + n].view(dtype).reshape(shape).copy())
+        off += n
+    return tuple(out)
+
+
+def _layout(tensors):
+    return [(_np_dtype(t.dtype), tuple(t.shape)) for t in tensors]
+
+
 def fetch(*tensors: torch.Tensor) -> tuple[np.ndarray, ...]:
     """The given tensors as host numpy arrays (copies), in one transfer."""
     global READS
-    devs = {t.device for t in tensors}
-    if all(d.type == "cpu" for d in devs):
+    if _on_cpu(tensors):
         return tuple(t.detach().numpy().copy() for t in tensors)
-    if len(devs) != 1:
-        raise ValueError(f"fetch: tensors on several devices {devs}")
-    flat = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-    buf = torch.cat(flat).cpu().numpy()
+    buf = _flatten(tensors).cpu().numpy()
     READS += 1
-    out, off = [], 0
-    for t, f in zip(tensors, flat):
-        n = f.numel()
-        out.append(buf[off:off + n].view(_np_dtype(t.dtype)).reshape(tuple(t.shape)).copy())
-        off += n
-    return tuple(out)
+    return _split(buf, _layout(tensors))
+
+
+class AsyncFetch:
+    """A queued device -> host read of several tensors (see `fetch_async`)."""
+
+    def __init__(self, tensors):
+        global READS
+        self._arrays = None
+        self._event = None
+        if _on_cpu(tensors):
+            self._arrays = tuple(t.detach().numpy().copy() for t in tensors)
+            return
+        self._layout = _layout(tensors)
+        dev = _flatten(tensors)
+        self._host = torch.empty(dev.shape, dtype=torch.uint8, pin_memory=True)
+        self._host.copy_(dev, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record()
+        READS += 1
+
+    def done(self) -> bool:
+        """Has the copy landed? Never waits for the device."""
+        return self._event is None or self._event.query()
+
+    def result(self) -> tuple[np.ndarray, ...]:
+        """The arrays; waits for the copy when it has not landed yet."""
+        if self._arrays is None:
+            self._event.synchronize()
+            self._arrays = _split(self._host.numpy(), self._layout)
+            self._event = self._host = None
+        return self._arrays
+
+
+def fetch_async(*tensors: torch.Tensor) -> AsyncFetch:
+    """Queue one read of the given tensors behind the work already on the
+    current stream and return at once. On CPU tensors the handle is done at
+    once and holds the same arrays as `fetch`."""
+    return AsyncFetch(tensors)

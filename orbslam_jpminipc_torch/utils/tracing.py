@@ -95,3 +95,88 @@ _tracer = StageTracer()
 
 def get_tracer() -> StageTracer:
     return _tracer
+
+
+class StageQueueAudit:
+    """Follows a `Slam`'s mapping stage queue from outside: which stages of
+    each queued keyframe ran, which were skipped because the keyframe had
+    been culled, which the InterruptBA rules took out, and how deep the
+    queue got. It wraps the Slam's queue methods on the instance and reads
+    `slam.pending`; the Slam does not know of it.
+
+    `check(stages)` raises when a keyframe's stage ran twice, when a stage
+    neither ran nor was taken out by the rules, or when the queue held more
+    than `2 * len(stages) + 2` stages."""
+
+    BA = ("ba_d", "ba_m", "ba2_d", "ba2_m")
+
+    def __init__(self, slam):
+        self.slam = slam
+        self.entries: list[dict] = []   # one per queued keyframe, in order
+        self._by_list: dict[int, dict] = {}
+        self.max_depth = 0              # the queue is deepest right after a keyframe
+        run, on_kf = slam._run_pending_stage, slam._on_new_keyframe
+
+        def run_pending_stage():
+            kf, stages = slam.pending[0]
+            e = self._entry(kf, stages)
+            self._diff(e)
+            valid = bool(slam.map.kf_valid[kf])
+            stage = run()
+            (e["ran"] if valid else e["skipped"]).append(stage)
+            e["last"] = list(stages)
+            return stage
+
+        def on_new_keyframe(frame):
+            on_kf(frame)
+            for kf, stages in slam.pending:
+                self._diff(self._entry(kf, stages))
+            self.max_depth = max(self.max_depth, sum(len(s) for _, s in slam.pending))
+
+        slam._run_pending_stage = run_pending_stage
+        slam._on_new_keyframe = on_new_keyframe
+        slam.tracker.on_new_keyframe = on_new_keyframe
+
+    def _entry(self, kf, stages):
+        e = self._by_list.get(id(stages))
+        if e is None:
+            e = {"kf": int(kf), "list": stages, "queued": list(stages), "last": list(stages),
+                 "ran": [], "skipped": [], "removed": [], "inserted": []}
+            self._by_list[id(stages)] = e
+            self.entries.append(e)
+        return e
+
+    def _diff(self, e):
+        """What changed in a queued list since it was last seen."""
+        now = list(e["list"])
+        e["removed"] += [s for s in e["last"] if s not in now]
+        e["inserted"] += [s for s in now if s not in e["last"]]
+        e["last"] = now
+
+    def counts(self) -> dict:
+        cancelled = sum(set(self.BA) <= set(e["removed"]) for e in self.entries)
+        aborted = sum("ba_abort" in e["inserted"] for e in self.entries)
+        return {"keyframes_queued": len(self.entries), "ba_cancelled": cancelled,
+                "ba_aborted": aborted, "max_depth": self.max_depth,
+                "stages_run": sum(len(e["ran"]) for e in self.entries),
+                "stages_skipped_culled": sum(len(e["skipped"]) for e in self.entries)}
+
+    def check(self, stages):
+        if self.slam.pending:
+            raise AssertionError(f"stages still queued: {self.slam.pending}")
+        if self.max_depth > 2 * len(stages) + 2:
+            raise AssertionError(f"the queue held {self.max_depth} stages")
+        for e in self.entries:
+            done = e["ran"] + e["skipped"]
+            for s in list(stages) + ["ba_abort"]:
+                if done.count(s) > 1:
+                    raise AssertionError(f"keyframe {e['kf']}: stage {s} ran {done.count(s)} times")
+            removed = set(e["removed"])
+            if removed not in (set(), set(self.BA), {"ba2_d", "ba2_m"}):
+                raise AssertionError(f"keyframe {e['kf']}: stages {removed} were taken out")
+            aborted = removed == {"ba2_d", "ba2_m"}
+            if aborted != ("ba_abort" in done):
+                raise AssertionError(f"keyframe {e['kf']}: ba_abort and the removed stages disagree")
+            missing = [s for s in stages if s not in done and s not in removed]
+            if missing:
+                raise AssertionError(f"keyframe {e['kf']}: stages {missing} never ran")

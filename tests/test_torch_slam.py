@@ -15,6 +15,7 @@ Measured on the CPU: states and counts identical, centres within 3e-6.
 import ast
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -123,13 +124,26 @@ def _sources():
 
 
 def test_package_sources_import_neither_jax_nor_cv2():
-    """Parse every module of the port: no import of jax, cv2 or the JAX
-    package, at any depth (function bodies included)."""
+    """Parse every module of the port and `chip_smoke.py`: no import of
+    jax, cv2 or the JAX package, at any depth (function bodies included),
+    and no string literal that is a path into the JAX package (its data
+    directory included: the port keeps its own copies)."""
     banned = ("jax", "jaxlib", "cv2", "orbslam_jpminipc_tpu")
     n = 0
-    for path in _sources():
+    for path in list(_sources()) + [os.path.join(REPO, "chip_smoke.py")]:
         tree = ast.parse(open(path).read(), filename=path)
+        docstrings = {id(b.body[0].value) for b in ast.walk(tree)
+                      if isinstance(b, (ast.Module, ast.FunctionDef, ast.ClassDef))
+                      and b.body and isinstance(b.body[0], ast.Expr)
+                      and isinstance(b.body[0].value, ast.Constant)}
         for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docstrings):
+                # docstrings name the counterpart file, and a `file.py:line`
+                # citation is no path to open; anything else would be one
+                text = re.sub(r"orbslam_jpminipc_tpu/[\w/]+\.py:\d+", "", node.value)
+                assert "orbslam_jpminipc_tpu" not in text, \
+                    f"{path}:{node.lineno}: a path into the JAX package"
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -142,17 +156,23 @@ def test_package_sources_import_neither_jax_nor_cv2():
     assert n > 30
 
 
-@pytest.mark.parametrize("override", [
-    dict(pipelined_tracking=True), dict(async_mapping=True), "vocab"])
+@pytest.mark.parametrize("override", [dict(pipelined_tracking=True), "loop_closing"])
 def test_unported_options_are_refused(override):
+    """Pipelined tracking, and loop closing (asked for by giving a
+    vocabulary without `enable_loop_closing=False`), are refused; a
+    vocabulary with loop closing off, and asynchronous mapping, are not."""
     kw = dict(CFG_KW)
-    vocab = None
-    if override == "vocab":
-        vocab = object()
+    extra = {}
+    if override == "loop_closing":
+        extra = dict(vocab=object(), enable_loop_closing=True)
     else:
         kw.update(override)
     with pytest.raises(ValueError):
-        Slam(SlamConfig(**kw), vocab=vocab, device="cpu")
+        Slam(SlamConfig(**kw), device="cpu", **extra)
+    if override == "loop_closing":
+        with pytest.raises(ValueError, match="loop closing"):
+            Slam(SlamConfig(**kw), vocab=object(), device="cpu")  # the default asks for it
+        assert Slam(SlamConfig(**kw), enable_loop_closing=True, device="cpu").kfdb is None
 
 
 def test_blank_frames_never_initialize_and_reset_clears():
