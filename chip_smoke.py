@@ -43,30 +43,59 @@ Phases (any failure raises, so the script exits non-zero):
                  same frames counts host synchronisations per frame (CUDA
                  sync debug mode) and shows how far two runs on the card
                  agree.
-  8. reloc_async `Slam(cfg, vocab=tree64k, enable_loop_closing=False)` at the
-                 shipping widths with the 64k-word tree vocabulary, twice.
-                 Run R (synchronous mapping): the 28 frames, 3 noise frames
+  8. reloc_async `Slam` at the shipping widths with the 64k-word tree
+                 vocabulary, twice. Run R (`enable_loop_closing=False`,
+                 synchronous mapping): the 28 frames, 3 noise frames
                  (the camera covered), then frames 28-44 of the sequence;
                  the tracker must go LOST, relocalize through the keyframe
                  database and PnP, and come back on the frame the JAX
                  reference did (its initialization and PnP minimal sets
                  injected); held to the reference's states, first candidate
                  list, camera centres after recovery and keyframe ATE. Run A
-                 (`async_mapping=True`, the reference package's default):
-                 the 45 frames without the noise; keyframes only when the
-                 mapper-busy gate allows, the mapping stages worked off over
-                 later frames and never waited for; held to outcomes and
-                 to the stage queue's invariants. Reports ms per `process`
+                 is the default constructor call, `Slam(cfg, vocab=tree64k)`
+                 (`async_mapping=True` and loop closing on, the reference
+                 package's defaults): the 45 frames without the noise;
+                 keyframes only when the mapper-busy gate allows, the eleven
+                 stages of each (the mapper's ten, then "loop") worked off
+                 over later frames and never waited for; held to outcomes,
+                 to the stage queue's invariants, to 0 loops closed (as the
+                 reference on this sequence) and to one `loop_detect` for
+                 every "loop" stage that ran. Reports ms per `process`
                  by frame group (initialization, keyframe, other, lost),
                  keyframes, queue depth, BAs cancelled and aborted, host
                  reads and synchronisations per frame by group, the
                  relocalization attempts, the keyframe database's times, the
-                 batched library solves of one PnP call alone, and peak
-                 device memory. The FAST kernel must run once on every frame.
+                 batched library solves of one PnP call alone, the
+                 `loop_closing` stage's ms per keyframe, and peak device
+                 memory. The FAST kernel must run once on every frame.
+  9. loop        a constructed loop at the shipping capacity (max_kf 256,
+                 max_mp 16384, 2000 feature rows, eg_edges 2048, the 64k-word
+                 vocabulary; tools/loop_scene.py builds it from a seed: 46
+                 keyframes, 11,310 points, a tail that revisits the start
+                 through drifted duplicates). The map of a default
+                 `Slam(cfg, vocab=tree64k)` becomes that scene, and
+                 `Slam._loop_close` runs over the tail keyframes with the
+                 JAX reference's Sim3 minimal sets injected; held to the
+                 reference's recorded outcome (the closing and the loop
+                 keyframe, candidate lists, match and inlier counts, the
+                 Sim3 after RANSAC and after refinement, the essential
+                 graph's edges by kind and its chi2, camera centres after
+                 the correction, loop edges; the centres must also be nearer
+                 the truth than before). Then global BA at the full (256,
+                 16384, 65536) capacity: chi2 falls to within 5 % of the
+                 reference's, held cameras do not move, and `Slam.global_ba`
+                 writes it back. Reports ms per stage (detect_loop; per
+                 candidate mutual match, RANSAC, search by Sim3, refinement,
+                 guided matches; the correction and inside it the fuse
+                 search and the essential graph's 20 iterations; global BA's
+                 20 x 64), kernels launched by the last two (torch.profiler),
+                 host synchronisations by source line (none may lie inside
+                 the solvers' iterations), peak device memory. The FAST
+                 kernel is not on this phase's path.
 
 `--phases a,b` runs only the named phases (after device and build) and
-prints no result line. `--compare TREE TREE ...` runs the throughput and
-system phases of several checkouts one after another, each tree's own code
+prints no result line. `--compare TREE TREE ...` runs the throughput,
+system and reloc_async phases of several checkouts one after another, each tree's own code
 in a process of its own, and prints one JSON line per tree: times on the
 card move with the host between calls, so two commits are compared only
 inside one call, in the order parent, change, change, parent:
@@ -76,9 +105,10 @@ inside one call, in the order parent, change, change, parent:
 
 The fixtures (orbslam_jpminipc_torch/data/track_fixture_xyz.npz,
 slam_fixture_xyz.npz and reloc_fixture_xyz.npz) carry real frames and the
-reference's state and outputs; tools/make_torch_fixture.py,
-tools/make_torch_slam_fixture.py and tools/make_torch_reloc_fixture.py
-write them. Details go to chiprun_out/chip_smoke.json. The last line of
+reference's state and outputs, loop_fixture.npz the reference's outcome on
+the constructed loop; tools/make_torch_fixture.py,
+tools/make_torch_slam_fixture.py, tools/make_torch_reloc_fixture.py and
+tools/make_torch_loop_fixture.py write them. Details go to chiprun_out/chip_smoke.json. The last line of
 standard output is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -96,6 +126,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "track_fixture_xyz.npz")
 SLAM_FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "slam_fixture_xyz.npz")
 RELOC_FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "reloc_fixture_xyz.npz")
+LOOP_FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "loop_fixture.npz")
 VOCAB = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "vocab_tree64k.npz")
 LEVEL_SHAPES = [(480, 640), (400, 533), (333, 444), (278, 370),
                 (231, 309), (193, 257), (161, 214), (134, 179)]
@@ -113,6 +144,11 @@ SYS_ATE_MARGIN = 5e-3     # keyframe ATE above the reference's
 # the forced-loss run against the reference's recorded outcome on the card
 RELOC_STATE_MISMATCH_MAX = 2   # frames whose state may differ
 RELOC_WITHIN_FRAMES = 20       # WORKING again within this many frames of the loss
+# the constructed loop against the reference's recorded outcome
+LOOP_COUNT_REL = 0.03     # mutual matches, inlier counts, guided total
+LOOP_SIM3_TOL = 1e-3      # scale, rotation entries, translation over the median depth
+LOOP_CHI2_REL = 0.05      # the essential graph's and global BA's final chi2
+LOOP_CENTRE_TOL = 1e-2    # camera centres after the correction, over the median depth
 # the card's published peaks (NVIDIA H100 SXM data sheet) for the kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -806,7 +842,6 @@ def phase_reloc_async(torch, fast_cuda, smi):
 
     from orbslam_jpminipc_torch.config import SlamConfig
     from orbslam_jpminipc_torch.frontend.tracking import TrackState
-    from orbslam_jpminipc_torch.pipeline.local_mapping import LocalMapper
     from orbslam_jpminipc_torch.pipeline.system import Slam
     from orbslam_jpminipc_torch.utils import host
     from orbslam_jpminipc_torch.utils.tracing import StageQueueAudit, get_tracer
@@ -839,7 +874,10 @@ def phase_reloc_async(torch, fast_cuda, smi):
 
     def make(async_mapping, inject_pnp):
         cfg = SlamConfig(**dict(meta["config"], async_mapping=async_mapping))
-        slam = Slam(cfg, vocab=vocab, enable_loop_closing=False)
+        # Run A is the default constructor call (loop closing on); Run R
+        # keeps one path without the "loop" stage's work covered
+        slam = (Slam(cfg, vocab=vocab) if async_mapping
+                else Slam(cfg, vocab=vocab, enable_loop_closing=False))
         isets = iter(torch.as_tensor(x).cuda() for x in rf["init_sets"])
         slam.tracker.sampler = lambda mask, n_hyp: next(isets)
         if inject_pnp:
@@ -972,7 +1010,8 @@ def phase_reloc_async(torch, fast_cuda, smi):
             "finish_ms": finish_ms, "wall_s": wall_s, "synchronised_each_frame": not async_mapping,
             "fast_launches": launches, "peak_mem_bytes": int(peak),
             "stages": {k: v for k, v in stages.items()
-                       if k.startswith(("kfdb", "bow", "reloc", "mapping", "map_", "track"))},
+                       if k.startswith(("kfdb", "bow", "reloc", "mapping", "map_", "track",
+                                        "loop_"))},
             "rows": rows, "events": [e for e in events if e["event"].startswith(
                 ("reloc_", "ba_", "mapping_not_ready"))],
         }
@@ -993,7 +1032,7 @@ def phase_reloc_async(torch, fast_cuda, smi):
             log(f"[{name}] synchronisations of the {k} frames by source line (second run, "
                 f"{sum(r['kind'] == k for r in rows2)} frames): {json.dumps(top)}")
         for k in ("kfdb_add", "bow_word_ids", "kfdb_query_bow", "kfdb_detect_reloc",
-                  "reloc_candidate", "reloc_refine"):
+                  "reloc_candidate", "reloc_refine", "loop_closing", "loop_detect"):
             if k in stages:
                 log(f"[{name}] {smi}: stage {k}: {json.dumps(stages[k])}")
         if launches != len(rows) or any(r["fast_launches"] != 1 for r in rows):
@@ -1086,10 +1125,343 @@ def phase_reloc_async(torch, fast_cuda, smi):
         raise AssertionError(f"[run_a] not WORKING on frames {not_working}")
     if not other:
         raise AssertionError("[run_a] every WORKING frame inserted a keyframe")
-    audit.check(LocalMapper.STAGES)
+    audit.check(Slam.STAGES)
     if not np.isfinite(ate) or ate > ref_ate + SYS_ATE_MARGIN:
         raise AssertionError(f"[run_a] keyframe ATE {ate} above run R's reference {ref_ate}")
+    # the eleventh stage: queued for every keyframe, run at most once, one
+    # `loop_detect` for each that ran, and no loop closed on this sequence
+    # (as the reference: its 300-frame run of it closes none either)
+    loops_run = sum(e["ran"].count("loop") for e in audit.entries)
+    n_detect = res_a["stages"].get("loop_detect", {}).get("count", 0)
+    res_a.update({"loop_stages_run": loops_run, "loop_detect_count": n_detect,
+                  "n_loops_closed": slam.n_loops_closed})
+    log(f"[run_a] {loops_run} \"loop\" stages ran for {len(audit.entries)} keyframes queued, "
+        f"{n_detect} loop_detect traced, {slam.n_loops_closed} loops closed")
+    if any(e["queued"] != list(Slam.STAGES) for e in audit.entries):
+        raise AssertionError("[run_a] a keyframe was queued without the eleven stages")
+    if loops_run == 0 or n_detect != loops_run or slam.n_loops_closed != 0:
+        raise AssertionError(f"[run_a] {loops_run} loop stages, {n_detect} loop_detect, "
+                             f"{slam.n_loops_closed} loops closed")
     return {"library_solves_ms": solves, "run_r": res_r, "run_a": res_a}
+
+
+# ---- the constructed loop ------------------------------------------------------
+
+def loop_system(device, vocab):
+    """A default-constructor `Slam(cfg, vocab=vocab)` on `device` whose map
+    is the constructed loop scene the fixture names (tools/loop_scene.py
+    builds it from the seed). Returns (slam, info, fixture arrays, meta)."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import loop_scene
+
+    from orbslam_jpminipc_torch.config import SlamConfig
+    from orbslam_jpminipc_torch.map.map_state import MapState
+    from orbslam_jpminipc_torch.pipeline.system import Slam
+
+    lf = dict(np.load(LOOP_FIXTURE))
+    meta = json.loads(str(lf["meta"]))
+    st, info = loop_scene.build_loop_scene(MapState, meta["scene"], int(meta["seed"]),
+                                           device=device)
+    if info["cfg"] != meta["config"]:
+        raise AssertionError(f"the scene's config {info['cfg']} is not the fixture's")
+    cfg = SlamConfig(**info["cfg"])
+    slam = Slam(cfg, vocab=vocab, device=device)
+    if slam.loop_closer is None:
+        raise AssertionError("the default constructor call built no loop closer")
+    shape = (slam.map.max_kf, slam.map.max_mp, slam.map.n_feat, slam.map.max_obs)
+    if shape != (st.max_kf, st.max_mp, st.n_feat, st.max_obs):
+        raise AssertionError(f"the scene's capacities are not the system's {shape}")
+    # the scene takes the place of the system's empty map
+    slam.map = slam.tracker.map = slam.mapper.map = slam.loop_closer.map = st
+    dm = slam.mapper.dmap
+    dm.sync_all(st)
+    loop_scene.finish_scene(st, info, slam.kfdb,
+                            lambda ids: st.update_point_attributes(ids, cfg.scale_factors, dm))
+    dm.sync_all(st)
+    info["centres_before"] = loop_scene.camera_centres(st)
+    return slam, info, lf, meta
+
+
+def loop_run(slam, info, lf):
+    """`Slam._loop_close` over the scene's tail keyframes until the loop
+    closes, the reference's Sim3 minimal sets injected. Returns what
+    happened, from the tracer's records and the map."""
+    from orbslam_jpminipc_torch.solvers import essential_graph
+    from orbslam_jpminipc_torch.utils.tracing import get_tracer
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import loop_scene
+
+    st, closer, tracer = slam.map, slam.loop_closer, get_tracer()
+    sets = iter(lf["sim3_sets"])
+    closer.sim3_sampler = lambda mask, n_hyp: closer.dmap.put(next(sets))
+    events, problems = [], []
+    solve = essential_graph.optimize_essential_graph
+
+    def keep_problem(prob, iterations=20):
+        problems.append(prob)
+        return solve(prob, iterations=iterations)
+
+    tracer.log = lambda event, **f: events.append({"event": event, **f})
+    essential_graph.optimize_essential_graph = keep_problem
+    per_kf = []
+    try:
+        for k in info["tail"]:
+            n0, closed0 = len(events), slam.n_loops_closed
+            slam._loop_close(k)
+            ev = {e["event"]: e for e in events[n0:]}
+            per_kf.append({"kf": int(k), "closed": slam.n_loops_closed > closed0,
+                           "cands": ev.get("loop_detect", {}).get("cands", []),
+                           "enough": ev.get("loop_consistency", {}).get("enough", [])})
+            if per_kf[-1]["closed"]:
+                break
+    finally:
+        del tracer.log
+        essential_graph.optimize_essential_graph = solve
+    last = lambda name: next((e for e in reversed(events) if e["event"] == name), None)
+    out = {"per_kf": per_kf, "events": events, "eg_problem": problems[-1] if problems else None,
+           "closed_kf": next((r["kf"] for r in per_kf if r["closed"]), -1)}
+    if out["closed_kf"] < 0:
+        return out
+    kf = out["closed_kf"]
+    kinds = last("essential_graph_edges")
+    out.update({
+        "loop_kf": int(next(iter(st.kf_loop_edges[kf]))),
+        "n_mutual": [e["n_match"] for e in events if e["event"] == "sim3_mutual" and e["kf"] == kf],
+        "ransac": last("sim3_ransac"), "opt": last("sim3_opt"),
+        "guided_total": [e["total"] for e in events if e["event"] == "sim3_guided" and e["kf"] == kf],
+        "eg_kinds": {k: kinds[k] for k in ("loop", "spanning", "prior_loop", "covisibility")},
+        "eg_n_edges": min(kinds["total"], kinds["cap"]), "eg_chi2": last("essential_graph_done")["chi2"],
+        "loop_edges": sorted([int(a), int(b)] for a in range(st.max_kf)
+                             for b in st.kf_loop_edges[a] if a < b),
+        "centres_after": loop_scene.camera_centres(st),
+        "lost_after": slam.tracker.state.name,
+    })
+    return out
+
+
+def loop_hold(out, info, lf, meta):
+    """Hold a `loop_run` outcome to the reference's recorded one. Returns
+    the readings; raises where one is out of its bound."""
+    if [(r["kf"], r["closed"], r["cands"], r["enough"]) for r in out["per_kf"]] != [
+            (r["kf"], r["closed"], r["cands"], r["enough"]) for r in meta["per_kf"]]:
+        raise AssertionError(f"[loop] per keyframe {out['per_kf']}, reference {meta['per_kf']}")
+    if (out["closed_kf"], out["loop_kf"]) != (meta["closed_kf"], meta["loop_kf"]):
+        raise AssertionError(f"[loop] closed on {out['closed_kf']} with {out['loop_kf']}, reference "
+                             f"{meta['closed_kf']} with {meta['loop_kf']}")
+    depth = info["median_depth"]
+    r, o = out["ransac"], out["opt"]
+    live = lf["kf_valid"]
+    true_c = info["true_centres"]
+    n = len(true_c)
+    mean_err = lambda c: float(np.linalg.norm(c[:n] - true_c, axis=1).mean())
+    ref_c = -np.einsum("kji,kj->ki", lf["kf_R"], lf["kf_t"])
+    got = {
+        "n_mutual": out["n_mutual"][-1], "ransac_inliers": r["n_inliers"],
+        "opt_inliers": o["n_inliers"], "guided_total": out["guided_total"][-1],
+        "ransac_ds": abs(r["s"] - float(lf["ransac_s"])),
+        "ransac_dR": float(np.abs(np.array(r["R"]) - lf["ransac_R"]).max()),
+        "ransac_dt": float(np.abs(np.array(r["t"]) - lf["ransac_t"]).max()) / depth,
+        "opt_ds": abs(o["s"] - float(lf["opt_s"])),
+        "opt_dR": float(np.abs(np.array(o["R"]) - lf["opt_R"]).max()),
+        "opt_dt": float(np.abs(np.array(o["t"]) - lf["opt_t"]).max()) / depth,
+        "eg_kinds": out["eg_kinds"], "eg_n_edges": out["eg_n_edges"], "eg_chi2": out["eg_chi2"],
+        "max_dcentre": float(np.abs(out["centres_after"][live] - ref_c[live]).max()) / depth,
+        "mean_centre_error_before": mean_err(info["centres_before"]),
+        "mean_centre_error_after": mean_err(out["centres_after"]),
+        "loop_edges": out["loop_edges"], "tracker_after": out["lost_after"],
+    }
+    ref = {"n_mutual": meta["n_mutual"][-1], "ransac_inliers": meta["ransac_n_inliers"][-1],
+           "opt_inliers": meta["opt_n_inliers"][-1], "guided_total": meta["guided_total"][-1]}
+    for k, v in ref.items():
+        if abs(got[k] - v) > LOOP_COUNT_REL * v:
+            raise AssertionError(f"[loop] {k} {got[k]}, reference {v}")
+    for k in ("ransac_ds", "ransac_dR", "ransac_dt", "opt_ds", "opt_dR", "opt_dt"):
+        if not got[k] <= LOOP_SIM3_TOL:
+            raise AssertionError(f"[loop] {k} = {got[k]} above {LOOP_SIM3_TOL}")
+    if got["eg_kinds"] != meta["eg_kinds"] or got["eg_n_edges"] != meta["eg_n_edges"]:
+        raise AssertionError(f"[loop] essential-graph edges {got['eg_kinds']}, reference "
+                             f"{meta['eg_kinds']}")
+    if not abs(got["eg_chi2"] - meta["eg_chi2"]) <= LOOP_CHI2_REL * meta["eg_chi2"]:
+        raise AssertionError(f"[loop] essential-graph chi2 {got['eg_chi2']}, reference "
+                             f"{meta['eg_chi2']}")
+    if not got["max_dcentre"] <= LOOP_CENTRE_TOL:
+        raise AssertionError(f"[loop] camera centres off the reference's by {got['max_dcentre']} "
+                             f"of the median depth")
+    if not got["mean_centre_error_after"] < got["mean_centre_error_before"]:
+        raise AssertionError(f"[loop] the correction moved the centres away from the truth: "
+                             f"{got['mean_centre_error_before']} -> {got['mean_centre_error_after']}")
+    if got["loop_edges"] != meta["loop_edges"]:
+        raise AssertionError(f"[loop] loop edges {got['loop_edges']}, reference {meta['loop_edges']}")
+    if got["tracker_after"] != "LOST":
+        raise AssertionError("[loop] the closure did not force a relocalization")
+    return got
+
+
+def loop_global_ba(slam, meta, solve=None):
+    """Global BA on the corrected map at full capacity: the problem
+    `Slam.global_ba` builds, solved (through `solve(prob)` when given, e.g.
+    to time it), held to the reference's chi2, then `Slam.global_ba`
+    itself, which writes the result back."""
+    import torch
+
+    from orbslam_jpminipc_torch.solvers import ba, gba
+    from orbslam_jpminipc_torch.utils.host import fetch
+
+    st, cfg = slam.map, slam.cfg
+    prob, n_obs = slam.build_global_ba_problem()
+    shape = [prob.kf_R.shape[0], prob.points.shape[0], prob.obs_kf.shape[0]]
+    solve = solve or (lambda p: gba.bundle_adjust_large(
+        p, iterations=cfg.gba_iterations, cg_iters=cfg.gba_cg_iters))
+    res = solve(prob)
+    chi0, chi1, kf_R, kf_t, fixed, R0, t0 = fetch(
+        ba._robust_chi2(prob, prob.kf_R, prob.kf_t, prob.points), res.chi2, res.kf_R, res.kf_t,
+        prob.kf_fixed, prob.kf_R, prob.kf_t)
+    got = {"shape": shape, "n_obs": int(n_obs), "chi2_before": float(chi0),
+           "chi2_after": float(chi1), "ref_chi2_before": meta["gba_chi2_before"],
+           "ref_chi2_after": meta["gba_chi2_after"], "held_cameras": int(fixed.sum())}
+    if shape != meta["gba_shape"] or n_obs != meta["gba_n_obs"]:
+        raise AssertionError(f"[loop] global BA shape {shape} with {n_obs} observations, reference "
+                             f"{meta['gba_shape']} with {meta['gba_n_obs']}")
+    if not chi1 < chi0:
+        raise AssertionError(f"[loop] global BA did not lower chi2: {chi0} -> {chi1}")
+    if not abs(chi1 - meta["gba_chi2_after"]) <= LOOP_CHI2_REL * meta["gba_chi2_after"]:
+        raise AssertionError(f"[loop] global BA ends at chi2 {chi1}, reference "
+                             f"{meta['gba_chi2_after']}")
+    if not (np.array_equal(kf_R[fixed], R0[fixed]) and np.array_equal(kf_t[fixed], t0[fixed])):
+        raise AssertionError("[loop] global BA moved a held camera")
+    if not (np.isfinite(kf_R).all() and np.isfinite(kf_t).all()):
+        raise AssertionError("[loop] global BA returned non-finite poses")
+    # the entry point: solves the same problem again and writes it back
+    gauge = int(np.nonzero(st.kf_valid)[0][np.argmin(st.kf_frame_id[st.kf_valid])])
+    R_g, t_g = st.kf_R[gauge].copy(), st.kf_t[gauge].copy()
+    res2 = slam.global_ba()
+    got["entry_point_chi2"] = float(fetch(res2.chi2)[0])
+    moved = float(np.abs(st.kf_t[st.kf_valid] - t0[st.kf_valid]).max())
+    if not (np.array_equal(st.kf_R[gauge], R_g) and np.array_equal(st.kf_t[gauge], t_g)) \
+            or moved == 0.0 or not np.isfinite(st.mp_xyz[st.mp_valid]).all():
+        raise AssertionError(f"[loop] Slam.global_ba wrote back wrongly (largest move {moved})")
+    return got
+
+
+def _profile_kernels(torch, fn):
+    """Run `fn` once under torch.profiler: kernels launched and their time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if _is_device_event(e)]
+    top = sorted(kernels, key=_device_time_us, reverse=True)[:6]
+    return {"kernels": sum(e.count for e in kernels),
+            "device_ms": sum(_device_time_us(e) for e in kernels) / 1e3,
+            "top": [{"name": e.key[:80], "device_ms": _device_time_us(e) / 1e3, "count": e.count}
+                    for e in top]}
+
+
+def phase_loop(torch, fast_cuda, smi):
+    import warnings
+
+    from orbslam_jpminipc_torch.solvers import essential_graph, gba
+    from orbslam_jpminipc_torch.utils import host
+    from orbslam_jpminipc_torch.utils.tracing import get_tracer
+    from orbslam_jpminipc_torch.vocab.vocabulary import load_vocabulary
+
+    vocab = load_vocabulary(VOCAB)
+    tracer = get_tracer()
+    launches0 = fast_cuda.LAUNCHES
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    # a first system, untimed, under CUDA sync debug mode: where the host
+    # waits. It also takes the first-call costs (library handles, the
+    # transforms' first trace) off the timed pass
+    slam2, info2, lf2, _ = loop_system("cuda", vocab)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out2 = loop_run(slam2, info2, lf2)
+            slam2.global_ba()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    log(f"[loop] host synchronisations by source line (first pass, sync debug mode, "
+        f"{len(out2['per_kf'])} keyframes and one global BA): "
+        f"{json.dumps(sorted(sites.items(), key=lambda kv: -kv[1]))}")
+    in_solvers = {k: v for k, v in sites.items() if any(
+        f"solvers/{m}.py" in k for m in ("essential_graph", "sim3_opt", "gba", "ba", "linalg3"))
+        or "geometry/" in k}
+    if in_solvers:
+        raise AssertionError(f"[loop] a solver's iterations wait for the host: {in_solvers}")
+    del slam2
+    # the main pass: timed by stage, held to the reference
+    (slam, info, lf, meta), build_ms = timed(lambda: loop_system("cuda", vocab))
+    log(f"[loop] scene {meta['scene']} seed {meta['seed']}: {slam.n_keyframes} keyframes, "
+        f"{slam.n_points} points, capacities {slam.map.max_kf} x {slam.map.max_mp} x "
+        f"{slam.map.n_feat}, eg_edges {slam.cfg.eg_edges}, built in {build_ms:.0f} ms")
+    tracer.reset()
+    torch.cuda.reset_peak_memory_stats()   # (allocated bytes: the cache stays warm)
+    reads0 = host.READS
+    out, run_ms = timed(lambda: loop_run(slam, info, lf))
+    if out["closed_kf"] < 0:
+        raise AssertionError(f"[loop] the loop did not close: {out['per_kf']}")
+    held = loop_hold(out, info, lf, meta)
+    if out2["closed_kf"] != out["closed_kf"]:
+        raise AssertionError(f"[loop] the first pass closed on {out2['closed_kf']}")
+    stages = {k: v for k, v in tracer.summary().items()
+              if k.startswith(("loop_", "sim3_", "kfdb", "attrs"))}
+    log(f"[loop] outcome: {json.dumps(held)}")
+    for k, v in stages.items():
+        log(f"[loop] {smi}: stage {k}: {json.dumps(v)}")
+    gba_ms = []
+
+    def timed_solve(p):
+        res, ms = timed(lambda: gba.bundle_adjust_large(
+            p, iterations=slam.cfg.gba_iterations, cg_iters=slam.cfg.gba_cg_iters))
+        gba_ms.append(ms)
+        return res
+
+    ba_held = loop_global_ba(slam, meta, solve=timed_solve)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[loop] {smi}: global BA {slam.cfg.gba_iterations} x {slam.cfg.gba_cg_iters} at "
+        f"{ba_held['shape']} with {ba_held['n_obs']} observations: {gba_ms[0]:.1f} ms; "
+        f"{json.dumps(ba_held)}")
+    log(f"[loop] {smi}: the whole pass over {len(out['per_kf'])} keyframes {run_ms:.1f} ms, "
+        f"{host.READS - reads0} batched reads; peak device memory {peak} bytes")
+
+    # the two long solvers alone, under the profiler: kernels launched
+    prob = out["eg_problem"]
+    eg_prof = _profile_kernels(torch, lambda: essential_graph.optimize_essential_graph(
+        prob, iterations=20))
+    _, eg_ms = timed(lambda: essential_graph.optimize_essential_graph(prob, iterations=20))
+    ba_prob, _ = slam.build_global_ba_problem()
+    ba_prof = _profile_kernels(torch, lambda: gba.bundle_adjust_large(
+        ba_prob, iterations=slam.cfg.gba_iterations, cg_iters=slam.cfg.gba_cg_iters))
+    log(f"[loop] {smi}: essential graph alone (20 iterations, K = {prob.s.shape[0]}, "
+        f"{held['eg_n_edges']} edges in {prob.e_i.shape[0]} slots): {eg_ms:.1f} ms, "
+        f"{json.dumps(eg_prof)}")
+    log(f"[loop] {smi}: global BA under the profiler: {json.dumps(ba_prof)}")
+
+    if fast_cuda.LAUNCHES != launches0:
+        raise AssertionError("[loop] the FAST kernel ran: it is not on this phase's path")
+    log("[loop] the FAST kernel is not on this phase's path: 0 launches")
+    return {"card": smi, "scene": {k: meta[k] for k in ("scene", "seed", "n_keyframes",
+                                                       "n_points_before", "config")},
+            "held": held, "per_kf": out["per_kf"], "stages": stages, "pass_ms": run_ms,
+            "global_ba": ba_held, "global_ba_ms": gba_ms[0], "global_ba_profile": ba_prof,
+            "essential_graph_ms": eg_ms, "essential_graph_profile": eg_prof,
+            "sync_sites": sites, "peak_mem_bytes": int(peak), "fast_launches": 0}
 
 
 # what `--compare` runs in each tree: that tree's own phases, quietly
@@ -1108,18 +1480,25 @@ smi = c.phase_device(torch)
 fx = dict(np.load(c.FIXTURE))
 thr = c.phase_throughput(torch, FusedContext, SlamConfig, fx, n_steps=100)
 sysr = c.phase_system(torch, fast_cuda, smi)
+ra = c.phase_reloc_async(torch, fast_cuda, smi)["run_a"]
 keep = ("ms_per_frame", "syncs_per_frame", "fetches_per_frame", "n_keyframes", "n_points",
         "kf_ate", "states_equal", "peak_mem_bytes")
-print("RESULT " + json.dumps({"card": smi, "step": thr, "system": {k: sysr[k] for k in keep}}))
+keep_a = ("ms_per_frame", "ms_until_return", "syncs_per_frame", "keyframes_inserted",
+          "queue_depth", "queue", "not_ready_skips", "wall_s", "kf_ate", "peak_mem_bytes")
+run_a = {k: ra[k] for k in keep_a}
+run_a["loop_stages"] = {k: v for k, v in ra["stages"].items() if k.startswith("loop_")}
+print("RESULT " + json.dumps({"card": smi, "step": thr, "system": {k: sysr[k] for k in keep},
+                              "run_a": run_a}))
 """
 
 
 def compare(trees) -> int:
-    """The step's p50/p95 and the system phase's ms per `Slam.process` by
-    frame group, synchronisations, reads and outcome, for each tree in turn."""
+    """The step's p50/p95, the system phase's ms per `Slam.process` by
+    frame group, synchronisations, reads and outcome, and Run A's ms by
+    frame group, queue and loop-closing stages, for each tree in turn."""
     for i, tree in enumerate(trees):
         out = subprocess.run([sys.executable, "-c", _COMPARE_RUN], cwd=tree,
-                             capture_output=True, text=True, timeout=1500)
+                             capture_output=True, text=True, timeout=2400)
         lines = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
         if out.returncode != 0 or not lines:
             sys.stderr.write(out.stdout[-2000:] + out.stderr[-4000:])
@@ -1161,6 +1540,7 @@ def main() -> int:
         "device_busy_share": busy_share,
         "system": lambda: phase_system(torch, fast_cuda, smi),
         "reloc_async": lambda: phase_reloc_async(torch, fast_cuda, smi),
+        "loop": lambda: phase_loop(torch, fast_cuda, smi),
     }
     # `--phases a,b` runs only those (after device and build), for work on
     # one phase; such a run prints no result line
@@ -1194,6 +1574,7 @@ def main() -> int:
         "launches_slice_phase": report["slice"]["fast_launches"],
         "launches_reloc_run": report["reloc_async"]["run_r"]["fast_launches"],
         "launches_async_run": report["reloc_async"]["run_a"]["fast_launches"],
+        "launches_loop_phase": report["loop"]["fast_launches"],
         "max_abs_err": report["kernel"]["max_abs_err"],
         # per frame: one launch over the 8 pyramid levels, the select included
         "ms": k["ms"], "plain_ms": k["plain_ms"],

@@ -1,11 +1,15 @@
-"""SO3/SE3 operations used by the tracking step (counterpart of
-orbslam_jpminipc_tpu/geometry/se3.py).
+"""SO3/SE3 operations (counterpart of orbslam_jpminipc_tpu/geometry/se3.py):
+`hat`, `vee`, `exp_so3`, `log_so3`, `exp_se3`, `compose`,
+`inverse`, `transform`, `retract`, `orthonormalize`, and the quaternion
+helpers `quat_from_mat`, `mat_from_quat`, `quat_mul`.
 
 Conventions as in the reference package: rotations are 3x3 matrices
 (world->camera as Tcw), rigid transforms are (R, t) pairs acting by
 x_cam = R @ x_world + t, se3 tangents are [omega, upsilon] (rotation first)
-and updates are left-multiplicative, T_new = exp(xi) * T_old. All functions
-batch over leading dimensions.
+and updates are left-multiplicative, T_new = exp(xi) * T_old. Quaternions
+are [w, x, y, z], normalized. All functions batch over leading dimensions,
+use no data-dependent indexing and keep both arms of every `where` finite,
+so `torch.func.vmap` and `torch.func.jacfwd` trace through them.
 """
 from __future__ import annotations
 
@@ -26,6 +30,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
 def _eye_like(W: torch.Tensor) -> torch.Tensor:
@@ -74,9 +83,39 @@ def exp_se3(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return R, t
 
 
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> axis-angle (..., 3), through the unit
+    quaternion (stable for all angles in [0, pi], the near-pi case included).
+
+    The smoothed norm keeps the function AND its derivatives finite at the
+    identity: a plain norm has a NaN gradient at 0, which would poison the
+    forward-mode Jacobians of the Sim3 pose-graph residuals."""
+    q = quat_from_mat(R)  # w >= 0, so theta lies in [0, pi]
+    w, xyz = q[..., 0], q[..., 1:]
+    n = torch.sqrt(torch.sum(xyz * xyz, dim=-1) + 1e-24)
+    theta = 2.0 * torch.atan2(n, w)
+    return (theta / n)[..., None] * xyz
+
+
 def compose(Ra, ta, Rb, tb) -> tuple[torch.Tensor, torch.Tensor]:
     """(Ra,ta) * (Rb,tb): apply b first, then a."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def inverse(R, t) -> tuple[torch.Tensor, torch.Tensor]:
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def transform(R, t, x) -> torch.Tensor:
+    """Apply (R, t) to points x of shape (..., 3)."""
+    return (R @ x[..., None])[..., 0] + t
+
+
+def retract(R, t, xi) -> tuple[torch.Tensor, torch.Tensor]:
+    """Left-multiplicative update ``exp(xi) * (R, t)`` (g2o oplus)."""
+    dR, dt = exp_se3(xi)
+    return compose(dR, dt, R, t)
 
 
 def quat_from_mat(R: torch.Tensor) -> torch.Tensor:
@@ -94,11 +133,40 @@ def quat_from_mat(R: torch.Tensor) -> torch.Tensor:
     c1 = torch.stack([(m21 - m12) / (4 * qx), qx, (m01 + m10) / (4 * qx), (m02 + m20) / (4 * qx)], -1)
     c2 = torch.stack([(m02 - m20) / (4 * qy), (m01 + m10) / (4 * qy), qy, (m12 + m21) / (4 * qy)], -1)
     c3 = torch.stack([(m10 - m01) / (4 * qz), (m02 + m20) / (4 * qz), (m12 + m21) / (4 * qz), qz], -1)
-    idx = torch.argmax(torch.stack([qw, qx, qy, qz], dim=-1), dim=-1)
-    cands = torch.stack([c0, c1, c2, c3], dim=-2)
-    q = torch.take_along_dim(cands, idx[..., None, None].expand(*idx.shape, 1, 4), dim=-2)[..., 0, :]
+    # the first of the largest pivots, selected with `where` (no indexing
+    # by data, so the function maps and differentiates in forward mode)
+    idx = torch.argmax(torch.stack([qw, qx, qy, qz], dim=-1), dim=-1)[..., None]
+    q = torch.where(idx == 0, c0, torch.where(idx == 1, c1, torch.where(idx == 2, c2, c3)))
     q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def mat_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [w, x, y, z] (normalized here) -> rotation matrix."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        dim=-2,
+    )
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
 
 
 def orthonormalize(R: torch.Tensor) -> torch.Tensor:

@@ -64,7 +64,8 @@ class DeviceMap:
         a = np.asarray(a)
         if a.dtype == np.float64:
             a = a.astype(np.float32)
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        # (ascontiguousarray gives a 0-d array one dimension: undo that)
+        t = torch.from_numpy(np.ascontiguousarray(a)).reshape(a.shape)
         if self.device.type != "cuda":
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)

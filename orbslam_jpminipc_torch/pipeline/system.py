@@ -1,21 +1,25 @@
 """The SLAM system (counterpart of orbslam_jpminipc_tpu/pipeline/system.py).
 
-src/main.cc: builds the map, the keyframe database, the tracker and the
-local mapper, wires them together and exposes a per-frame `process()`.
-Instead of the reference's mutex-synchronized threads, stages run
-deterministically: tracking per frame, and the mapping stages of a new
-keyframe either right after the frame that made it, or
-(`cfg.async_mapping`, the reference package's default) queued and worked
-off over the following frames, a few stages a frame and never one whose
-device program has not finished. The non-empty queue is the mapper-busy
-gate of the keyframe decision. With a vocabulary every keyframe is indexed
-in a `KeyFrameDatabase` and a LOST tracker relocalizes against it. The
-keyframe trajectory (main.cc:226-245, TUM order) comes from
-`keyframe_trajectory()`.
+src/main.cc: builds the map, the keyframe database, the tracker, the
+local mapper and the loop closer, wires them together and exposes a
+per-frame `process()`. Instead of the reference's mutex-synchronized
+threads, stages run deterministically: tracking per frame, and the mapping
+stages of a new keyframe, loop closing last, either right after the frame
+that made it, or (`cfg.async_mapping`, the reference package's default)
+queued and worked off over the following frames, a few stages a frame and
+never one whose device program has not finished. The non-empty queue is
+the mapper-busy gate of the keyframe decision. With a vocabulary every
+keyframe is indexed in a `KeyFrameDatabase`, a LOST tracker relocalizes
+against it, and (`enable_loop_closing`, the default) every keyframe is
+searched for a loop; a closed loop corrects the whole map through the
+essential graph, optionally followed by global bundle adjustment
+(`cfg.post_loop_gba`, or `global_ba()` by hand). The keyframe trajectory
+(main.cc:226-245, TUM order) comes from `keyframe_trajectory()`.
 
-Not ported yet, and refused instead of being run some other way:
-`pipelined_tracking` (a workaround for the reference's device link) and
-loop closing (`enable_loop_closing=True` with a vocabulary).
+Refused instead of being run some other way: `pipelined_tracking` (a
+workaround for the reference's device link). The essential graph and
+global BA run on the system's one device whatever `cfg.distributed_gba`
+says: the reference's sharded solvers are not part of this package yet.
 """
 from __future__ import annotations
 
@@ -27,21 +31,23 @@ from ..frontend.tracking import Tracker, TrackState
 from ..map.device_map import DeviceMap
 from ..map.keyframe_db import KeyFrameDatabase
 from ..map.map_state import MapState
-from ..solvers import ba
+from ..solvers import ba, gba
 from ..utils.device import resolve_device
 from ..utils.host import fetch
 from ..utils.tracing import get_tracer
 from .local_mapping import LocalMapper
+from .loop_closing import LoopCloser
 
 
 class Slam:
+    # the stages queued for every keyframe under cfg.async_mapping: the
+    # mapper's, then loop closing (a host stage with blocking reads)
+    STAGES = LocalMapper.STAGES + ("loop",)
+
     def __init__(self, cfg: SlamConfig, vocab=None, enable_loop_closing: bool = True,
                  device=None):
         if cfg.pipelined_tracking:
             raise ValueError("pipelined_tracking=True is not supported: set it to False")
-        if vocab is not None and enable_loop_closing:
-            raise ValueError("loop closing is not ported yet: pass enable_loop_closing=False "
-                             "with a vocabulary")
         self.cfg = cfg
         self.device = resolve_device(device)
         # keyframe feature arrays sized for the 2x init extractor output
@@ -51,13 +57,21 @@ class Slam:
                      if vocab is not None else None)
         self.tracker = Tracker(cfg, self.map, self.kfdb, device=self.device)
         self.mapper = LocalMapper(cfg, self.map, self.kfdb, device=self.device)
+        self.loop_closer = (
+            LoopCloser(cfg, self.map, self.kfdb, device=self.device)
+            if (vocab is not None and enable_loop_closing)
+            else None
+        )
         self.tracker.on_initialized = self._create_initial_map
         self.tracker.on_new_keyframe = self._on_new_keyframe
         self.tracker.dmap = self.mapper.dmap
+        if self.loop_closer is not None:
+            self.loop_closer.dmap = self.mapper.dmap
         if cfg.async_mapping:
             self.tracker.mapper_busy = self._mapper_busy
         self.frame_count = 0
         self.trajectory: list[tuple[float, np.ndarray, np.ndarray]] = []
+        self.n_loops_closed = 0
         self.tracer = get_tracer()
         # amortized mapping queue: (kf, [remaining stages]), worked off a few
         # stages a frame when cfg.async_mapping, in place of the reference's
@@ -223,6 +237,10 @@ class Slam:
         m.dmap = DeviceMap(self.map.max_kf, self.map.n_feat, self.map.max_mp, device=self.device)
         tr.dmap = m.dmap
         self.pending = []
+        if self.loop_closer is not None:
+            self.loop_closer.map = self.map
+            self.loop_closer.consistent_groups = []
+            self.loop_closer.dmap = m.dmap
 
     # ------------------------------------------------------------------
     # initial map (Tracking::CreateInitialMap, Tracking.cc:422-524)
@@ -364,15 +382,16 @@ class Slam:
                     del stages[i:i + 2]
                     stages.insert(i, "ba_abort")
                     self.tracer.log("ba_aborted", kf=int(qkf), by=int(kf))
-            # the reference queues a "loop" stage after these; loop closing
-            # is refused in the constructor, so the stage is not queued
-            self.pending.append((kf, list(self.mapper.STAGES)))
+            # queued whether or not there is a loop closer, as the reference
+            # does: the stage counts toward a tick's budget either way
+            self.pending.append((kf, list(self.STAGES)))
             return
         with self.tracer.stage("mapping"):
             kf = self.mapper.process(frame)
         if kf < 0:
             return  # capacity-refused insertion (alloc_kf)
         self.tracker.ref_kf = kf
+        self._loop_close(kf)
         self.tracker.refresh_fused_slice()
 
     def _run_pending_stage(self) -> str:
@@ -382,8 +401,112 @@ class Slam:
             self.pending.pop(0)
         if not self.map.kf_valid[kf]:
             return stage  # culled while queued
-        self.mapper.run_stage(kf, stage)
+        if stage == "loop":
+            # loop detection/correction reads host point attributes: apply
+            # any deferred attrs writeback first
+            self.mapper.drain_attrs()
+            self._loop_close(kf)
+        else:
+            self.mapper.run_stage(kf, stage)
         return stage
+
+    def _loop_close(self, kf: int):
+        if self.loop_closer is None:
+            return
+        with self.tracer.stage("loop_closing"):
+            closed = self.loop_closer.process(kf)
+        if closed:
+            self.n_loops_closed += 1
+            self.tracer.log("loop_closed", kf=int(kf))
+            # the correction rewrote poses and points wholesale
+            self.mapper.dmap.sync_all(self.map)
+            self.tracker.force_relocalization()
+            if self.cfg.post_loop_gba:
+                with self.tracer.stage("global_ba"):
+                    self.global_ba()
+
+    # ------------------------------------------------------------------
+    # global bundle adjustment over the whole map (Optimizer.cc:38-152)
+    # ------------------------------------------------------------------
+
+    def build_global_ba_problem(self):
+        """Full-map BAProblem at fixed capacity (max_kf, max_mp, gba_obs):
+        every valid keyframe is a vertex (the oldest one fixed as the
+        gauge: GlobalBundleAdjustemnt fixes mnId==0, Optimizer.cc:87),
+        every valid point a landmark, observations gathered from the
+        adjacency. Returns (problem, number of observations)."""
+        st, cfg = self.map, self.cfg
+        pts = np.nonzero(st.mp_valid)[0]
+        kf_index = np.where(st.kf_valid, np.arange(st.max_kf), -1).astype(np.int32)
+        O = cfg.gba_obs
+        obs_kf = np.zeros(O, np.int64)
+        obs_pt = np.zeros(O, np.int64)
+        obs_uv = np.zeros((O, 2), np.float32)
+        obs_w = np.ones(O, np.float32)
+        obs_valid = np.zeros(O, bool)
+        from ..native import build_ba_obs_native
+
+        native = build_ba_obs_native(st, pts, kf_index, O)
+        if native is not None:
+            okf, _, ofe, osp, osk = native
+        else:
+            okf, ofe, osp, osk = [], [], [], []
+            for p in pts:
+                for s in np.nonzero(st.mp_obs_kf[p] >= 0)[0]:
+                    if len(okf) >= O:
+                        break
+                    okf.append(int(st.mp_obs_kf[p, s]))
+                    ofe.append(int(st.mp_obs_feat[p, s]))
+                    osp.append(int(p))
+                    osk.append(int(st.mp_obs_kf[p, s]))
+            okf, ofe = np.array(okf, np.int32), np.array(ofe, np.int32)
+            osp, osk = np.array(osp, np.int32), np.array(osk, np.int32)
+        n = len(okf)
+        obs_kf[:n] = okf
+        obs_pt[:n] = osp           # kf_index is the identity on valid KFs
+        obs_uv[:n] = st.kf_xy[osk, ofe]
+        lv = np.clip(st.kf_level[osk, ofe], 0, cfg.n_levels - 1)
+        obs_w[:n] = cfg.inv_sigma2[lv]
+        obs_valid[:n] = True
+
+        fixed = ~st.kf_valid
+        if st.kf_valid.any():
+            live = np.nonzero(st.kf_valid)[0]
+            fixed[int(live[np.argmin(st.kf_frame_id[live])])] = True
+        put = self.mapper.dmap.put
+        return ba.BAProblem(
+            kf_R=put(st.kf_R), kf_t=put(st.kf_t), kf_fixed=put(fixed),
+            points=put(st.mp_xyz), point_valid=put(st.mp_valid),
+            obs_kf=put(obs_kf), obs_pt=put(obs_pt), obs_uv=put(obs_uv), obs_w=put(obs_w),
+            obs_valid=put(obs_valid), K4=put(cfg.K4),
+        ), n
+
+    def global_ba(self, iterations: int | None = None):
+        """Run global BA (implicit-Schur PCG on the system's device) and
+        write back poses and points. The reference's global variant does
+        not erase outlier observations (only local BA does,
+        Optimizer.cc:453-470). Returns the result, or None when the map
+        holds fewer than 20 observations."""
+        st, cfg = self.map, self.cfg
+        prob, n_obs = self.build_global_ba_problem()
+        if n_obs < 20:
+            return None
+        iters = cfg.gba_iterations if iterations is None else iterations
+        res = gba.bundle_adjust_large(prob, iterations=iters, cg_iters=cfg.gba_cg_iters)
+        kf_R, kf_t, points, fixed = fetch(res.kf_R, res.kf_t, res.points, prob.kf_fixed)  # one read
+        live = st.kf_valid & ~fixed
+        st.kf_R[live] = kf_R[live]
+        st.kf_t[live] = kf_t[live]
+        st.mp_xyz[st.mp_valid] = points[st.mp_valid]
+        # refresh the mirror FIRST so the attrs pass gathers the post-BA
+        # poses and points on the device, then sync the recomputed
+        # attributes back into it
+        dm = self.mapper.dmap
+        dm.sync_all(st)
+        ids = np.nonzero(st.mp_valid)[0]
+        st.update_point_attributes(ids, cfg.scale_factors, dmap=dm)
+        dm.sync_points(st, ids)
+        return res
 
     # ------------------------------------------------------------------
 

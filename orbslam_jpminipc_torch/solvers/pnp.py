@@ -106,20 +106,22 @@ def solve_pnp(
     counts = torch.sum(inl, dim=1)
     # the most inliers, the lowest hypothesis among equals (unique keys)
     order = torch.arange(n_hyp - 1, -1, -1, device=xw.device)
-    best = torch.argmax(counts * n_hyp + order)
+    # (a 1-element index: indexing with a 0-d tensor reads it on the host)
+    best = torch.argmax(counts * n_hyp + order).reshape(1)
+    pick = lambda x: x[best][0]
 
     # refit EPnP on the best hypothesis's inliers (PnPsolver::Refine
     # :232-277: the reference also re-runs compute_pose on the inlier set)
-    inl_b = inl[best]
+    inl_b = pick(inl)
     R_r, t_r, ok_r = epnp_pose(xw[None], uv[None], inl_b.to(xw.dtype)[None], K4)
     R_r, t_r, ok_r = R_r[0], t_r[0], ok_r[0]
     xc_r = torch.einsum("ij,nj->ni", R_r, xw) + t_r
     err2_r = torch.sum((cam.project(xc_r, K4) - uv) ** 2, dim=-1)
     inl_r = (err2_r <= max_err2) & (xc_r[..., 2] > 0) & mask & ok_r
 
-    use_refined = torch.sum(inl_r) >= counts[best]
-    R_f = torch.where(use_refined, R_r, R_h[best])
-    t_f = torch.where(use_refined, t_r, t_h[best])
+    use_refined = torch.sum(inl_r) >= pick(counts)
+    R_f = torch.where(use_refined, R_r, pick(R_h))
+    t_f = torch.where(use_refined, t_r, pick(t_h))
     in_f = torch.where(use_refined, inl_r, inl_b)
     n_f = torch.sum(in_f)
     return PnPResult(success=n_f >= min_inliers, R=R_f, t=t_f, inliers=in_f, n_inliers=n_f)

@@ -105,8 +105,15 @@ class StageQueueAudit:
     `slam.pending`; the Slam does not know of it.
 
     `check(stages)` raises when a keyframe's stage ran twice, when a stage
-    neither ran nor was taken out by the rules, or when the queue held more
-    than `2 * len(stages) + 2` stages."""
+    neither ran nor was taken out by the rules, or when the queue was deeper
+    than the rules allow. The queue is deepest right after a keyframe
+    arrives. Then the new keyframe holds all `n = len(stages)` stages, and
+    each of the `p - 1` keyframes still queued holds at most `n - 4`: the
+    arrival cancels every bundle adjustment that has not started (four
+    stages), and one that has started has fewer stages left than that. So
+    the depth is at most `n + (n - 4) * (p - 1)`. `p` itself has no bound in
+    the rules (the gate lets a keyframe in on every frame of a streak of
+    hard tracking decay): `counts()` reports the largest seen."""
 
     BA = ("ba_d", "ba_m", "ba2_d", "ba2_m")
 
@@ -115,6 +122,7 @@ class StageQueueAudit:
         self.entries: list[dict] = []   # one per queued keyframe, in order
         self._by_list: dict[int, dict] = {}
         self.max_depth = 0              # the queue is deepest right after a keyframe
+        self.arrivals: list[tuple[int, int]] = []   # (depth, keyframes queued) at each arrival
         run, on_kf = slam._run_pending_stage, slam._on_new_keyframe
 
         def run_pending_stage():
@@ -131,7 +139,10 @@ class StageQueueAudit:
             on_kf(frame)
             for kf, stages in slam.pending:
                 self._diff(self._entry(kf, stages))
-            self.max_depth = max(self.max_depth, sum(len(s) for _, s in slam.pending))
+            depth = sum(len(s) for _, s in slam.pending)
+            if slam.pending:
+                self.arrivals.append((depth, len(slam.pending)))
+            self.max_depth = max(self.max_depth, depth)
 
         slam._run_pending_stage = run_pending_stage
         slam._on_new_keyframe = on_new_keyframe
@@ -158,14 +169,17 @@ class StageQueueAudit:
         aborted = sum("ba_abort" in e["inserted"] for e in self.entries)
         return {"keyframes_queued": len(self.entries), "ba_cancelled": cancelled,
                 "ba_aborted": aborted, "max_depth": self.max_depth,
+                "max_keyframes_queued_at_once": max((p for _, p in self.arrivals), default=0),
                 "stages_run": sum(len(e["ran"]) for e in self.entries),
                 "stages_skipped_culled": sum(len(e["skipped"]) for e in self.entries)}
 
     def check(self, stages):
         if self.slam.pending:
             raise AssertionError(f"stages still queued: {self.slam.pending}")
-        if self.max_depth > 2 * len(stages) + 2:
-            raise AssertionError(f"the queue held {self.max_depth} stages")
+        n = len(stages)
+        for depth, p in self.arrivals:
+            if depth > n + (n - 4) * (p - 1):
+                raise AssertionError(f"the queue held {depth} stages with {p} keyframes queued")
         for e in self.entries:
             done = e["ran"] + e["skipped"]
             for s in list(stages) + ["ba_abort"]:

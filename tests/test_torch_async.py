@@ -1,4 +1,7 @@
-"""The PyTorch port's asynchronous mapping queue (`cfg.async_mapping`).
+"""The PyTorch port's asynchronous mapping queue (`cfg.async_mapping`),
+driven through the default constructor call `Slam(cfg, vocab=v)`: loop
+closing on, so every keyframe queues eleven stages, the mapper's ten and
+then "loop".
 
 Which stage runs on which frame depends on whether a device program has
 finished, so the reference's run cannot be replayed frame by frame; the
@@ -8,14 +11,19 @@ one): initialised on the frame the synchronous system initialises on,
 WORKING on every frame after, at least one WORKING frame that inserts no
 keyframe, every queued keyframe's stages run at most once and all of them
 run or are taken out by the InterruptBA rules, the queue never deeper than
-`2 * len(STAGES) + 2`, nothing pending after `finish()`, the keyframe
+`n + (n - 4) * (p - 1)` right after a keyframe arrives with `p` keyframes
+queued (`n = 11` stages; an arrival cancels every BA that has not
+started, `StageQueueAudit` says how), one `loop_detect` for every "loop" stage that ran and no
+loop closed (as the reference on this sequence), nothing pending after
+`finish()`, the keyframe
 database in step with the map, and the keyframe trajectory's ATE against
 ground truth at most 6 mm (the synchronous reference's is below 1 mm on
 these frames, tests/test_torch_slam.py, plus the 5 mm margin of the card's
 run).
 
 The InterruptBA bookkeeping and the tick's stopping rules are tested on a
-scripted queue: a `Slam` whose mapper's stages are replaced by a recorder.
+scripted queue: a `Slam` whose mapper's stages and whose loop closing are
+replaced by a recorder.
 """
 import os
 
@@ -31,7 +39,7 @@ from orbslam_jpminipc_torch.io.trajectory import ate_rmse
 from orbslam_jpminipc_torch.pipeline.local_mapping import LocalMapper
 from orbslam_jpminipc_torch.pipeline.system import Slam
 from orbslam_jpminipc_torch.utils import host
-from orbslam_jpminipc_torch.utils.tracing import StageQueueAudit
+from orbslam_jpminipc_torch.utils.tracing import StageQueueAudit, get_tracer
 from orbslam_jpminipc_torch.vocab.vocabulary import vocab_from_numpy
 
 torch.set_num_threads(2)
@@ -42,7 +50,7 @@ CFG_KW = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=600, max_kf=64,
               max_mp=8192, local_ba_obs=8192, pipelined_tracking=False, async_mapping=True)
 N_FRAMES = 14
 ATE_BOUND = 6e-3
-STAGES = LocalMapper.STAGES
+STAGES = Slam.STAGES
 BA = ("ba_d", "ba_m", "ba2_d", "ba2_m")
 # where each launch stage keeps its queued read: (attribute, index, host half)
 HANDLE_AT = {"triangulate_d": ("_tri_pending", 2, "triangulate_m"),
@@ -61,7 +69,8 @@ def vocab():
 @pytest.fixture(scope="module")
 def run(vocab):
     fx = np.load(SLAM_FIXTURE)
-    slam = Slam(SlamConfig(**CFG_KW), vocab=vocab, enable_loop_closing=False, device="cpu")
+    slam = Slam(SlamConfig(**CFG_KW), vocab=vocab, device="cpu")   # loop closing on
+    get_tracer().reset()
     audit = StageQueueAudit(slam)
     mapper = slam.mapper
     kf_frames, handles, aborts = [], [], []
@@ -96,7 +105,7 @@ def run(vocab):
         states.append(state.value)
     slam.finish()
     return dict(slam=slam, audit=audit, states=states, kf_frames=kf_frames, handles=handles,
-                aborts=aborts, hard_drains=hard_drains, fx=fx)
+                aborts=aborts, hard_drains=hard_drains, fx=fx, stages=get_tracer().summary())
 
 
 def test_async_run_initialises_like_the_synchronous_one_and_stays_working(run):
@@ -125,12 +134,28 @@ def test_stage_queue_invariants(run):
     audit.check(STAGES)
     counts = audit.counts()
     assert counts["keyframes_queued"] == len(run["kf_frames"])
-    assert counts["max_depth"] <= 2 * len(STAGES) + 2
+    n, p = len(STAGES), counts["max_keyframes_queued_at_once"]
+    assert 1 <= p and counts["max_depth"] <= n + (n - 4) * (p - 1)
+    assert audit.arrivals and all(d <= n + (n - 4) * (q - 1) for d, q in audit.arrivals)
+    assert STAGES == LocalMapper.STAGES + ("loop",) and len(STAGES) == 11
     for e in audit.entries:
-        assert e["queued"] == list(STAGES)  # no "loop" stage while loop closing is refused
+        assert e["queued"] == list(STAGES)  # "loop" after the mapper's stages
         order = [s for s in e["ran"] if s in STAGES]
         assert order == [s for s in STAGES if s in order], e  # in the pipeline's order
     assert counts["stages_run"] + counts["stages_skipped_culled"] > 5 * len(run["kf_frames"])
+
+
+def test_the_loop_stage_runs_once_per_keyframe_and_closes_no_loop(run):
+    slam, audit = run["slam"], run["audit"]
+    assert slam.loop_closer is not None and slam.loop_closer.dmap is slam.mapper.dmap
+    loops = [e["ran"].count("loop") + e["skipped"].count("loop") for e in audit.entries]
+    assert loops == [1] * len(audit.entries)           # never taken out, never twice
+    ran = sum(e["ran"].count("loop") for e in audit.entries)
+    assert ran >= 3
+    assert run["stages"]["loop_closing"]["count"] == ran
+    assert run["stages"]["loop_detect"]["count"] == ran  # traced once per stage that ran
+    assert slam.n_loops_closed == 0
+    assert all(not edges for edges in slam.map.kf_loop_edges)
 
 
 def test_hard_drain_aborts_the_second_ba_stage_through_ba_abort(run):
@@ -179,7 +204,9 @@ class _Scripted:
         slam.mapper.run_stage = lambda kf, stage: self.ran.append((kf, stage))
         slam.mapper.stage_ready = ready
         slam.mapper.insert_keyframe = self._insert
-        slam.mapper.drain_attrs = lambda force=True: None
+        slam.mapper.drain_attrs = lambda force=True: self.drains.append(len(self.ran))
+        slam._loop_close = lambda kf: self.ran.append((kf, "loop"))
+        self.drains = []
         slam.tracker.refresh_fused_slice = lambda: None
 
     def _insert(self, frame):
@@ -209,7 +236,7 @@ def test_new_keyframe_cancels_a_ba_that_has_not_started():
     for _ in range(3):                      # cull_points, triangulate_d, triangulate_m
         s.slam._run_pending_stage()
     s.keyframe()
-    assert s.slam.pending[0] == (0, ["fuse_d", "fuse_m", "cull_kf"])
+    assert s.slam.pending[0] == (0, ["fuse_d", "fuse_m", "cull_kf", "loop"])
     assert s.slam.pending[1] == (1, list(STAGES))
     s.slam.finish()
     assert not any(st in BA or st == "ba_abort" for st in s.stages_of(0))
@@ -223,9 +250,9 @@ def test_new_keyframe_aborts_a_ba_between_its_stages():
         s.slam._run_pending_stage()
     assert s.slam.pending[0][1][0] == "ba2_d"
     s.keyframe()
-    assert s.slam.pending[0] == (0, ["ba_abort", "cull_kf"])
+    assert s.slam.pending[0] == (0, ["ba_abort", "cull_kf", "loop"])
     s.slam.finish()
-    assert s.stages_of(0) == list(STAGES[:7]) + ["ba_abort", "cull_kf"]
+    assert s.stages_of(0) == list(STAGES[:7]) + ["ba_abort", "cull_kf", "loop"]
 
 
 def test_new_keyframe_leaves_a_launched_second_stage_alone():
@@ -234,7 +261,7 @@ def test_new_keyframe_leaves_a_launched_second_stage_alone():
     for _ in range(8):                      # ... ba2_d
         s.slam._run_pending_stage()
     s.keyframe()
-    assert s.slam.pending[0] == (0, ["ba2_m", "cull_kf"])
+    assert s.slam.pending[0] == (0, ["ba2_m", "cull_kf", "loop"])
 
 
 def test_hard_drain_inserts_ba_abort_after_ba_m_when_stage_one_is_queued():
@@ -244,7 +271,7 @@ def test_hard_drain_inserts_ba_abort_after_ba_m_when_stage_one_is_queued():
         s.slam._run_pending_stage()
     s.slam._drain_mapping_hard()
     assert s.slam.pending == []
-    assert s.stages_of(0) == list(STAGES[:5]) + ["ba_d", "ba_m", "ba_abort", "cull_kf"]
+    assert s.stages_of(0) == list(STAGES[:5]) + ["ba_d", "ba_m", "ba_abort", "cull_kf", "loop"]
 
 
 def test_hard_drain_puts_ba_abort_in_place_when_stage_one_has_run():
@@ -253,7 +280,7 @@ def test_hard_drain_puts_ba_abort_in_place_when_stage_one_has_run():
     for _ in range(7):
         s.slam._run_pending_stage()
     s.slam._drain_mapping_hard()
-    assert s.stages_of(0) == list(STAGES[:7]) + ["ba_abort", "cull_kf"]
+    assert s.stages_of(0) == list(STAGES[:7]) + ["ba_abort", "cull_kf", "loop"]
 
 
 def test_hard_drain_works_off_every_queued_keyframe():
@@ -263,7 +290,18 @@ def test_hard_drain_works_off_every_queued_keyframe():
     s.slam._drain_mapping_hard()
     assert s.slam.pending == []
     assert s.stages_of(0) == [st for st in STAGES if st not in BA]
-    assert s.stages_of(1) == list(STAGES[:5]) + ["ba_d", "ba_m", "ba_abort", "cull_kf"]
+    assert s.stages_of(1) == list(STAGES[:5]) + ["ba_d", "ba_m", "ba_abort", "cull_kf", "loop"]
+
+
+def test_the_loop_stage_is_always_ready_and_applies_the_deferred_attributes_first():
+    """Detection reads host point attributes: the stage applies a deferred
+    attribute writeback before it runs, and never waits to be ready."""
+    s = _Scripted()
+    s.keyframe()
+    assert LocalMapper.stage_ready(s.slam.mapper, 0, "loop")   # the mapper's own answer
+    s.slam.pending[0][1][:] = ["loop"]
+    s.slam._mapping_tick()
+    assert s.ran == [(0, "loop")] and s.drains == [0] and s.slam.pending == []
 
 
 def test_tick_stops_at_a_stage_that_is_not_ready():

@@ -10,10 +10,12 @@ from orbslam_jpminipc_torch.config import SlamConfig
 from orbslam_jpminipc_torch.frontend.frame import build_frame
 from orbslam_jpminipc_torch.frontend.fused_track import FusedContext
 from orbslam_jpminipc_torch.frontend.tracking import Tracker
+from orbslam_jpminipc_torch.geometry import sim3
 from orbslam_jpminipc_torch.map.device_map import DeviceMap, map_from_snapshot
 from orbslam_jpminipc_torch.map.keyframe_db import KeyFrameDatabase
 from orbslam_jpminipc_torch.map.map_state import MapState
 from orbslam_jpminipc_torch.pipeline.local_mapping import LocalMapper
+from orbslam_jpminipc_torch.pipeline.loop_closing import LoopCloser
 from orbslam_jpminipc_torch.pipeline.system import Slam
 from orbslam_jpminipc_torch.utils.device import resolve_device
 from orbslam_jpminipc_torch.vocab.tree import TreeVocabulary, load_dbow2_tree
@@ -70,6 +72,11 @@ def _dbow2_text(tmp):
 # name -> (call with a device keyword, where the result keeps its device)
 ENTRY_POINTS = {
     "Slam": (lambda **k: Slam(CFG, **k), lambda r: r.device),
+    # the default constructor call with a vocabulary: loop closing on
+    "Slam[vocabulary]": (lambda **k: Slam(CFG, vocab=vocab_from_numpy(_flat_arrays(), device="cpu"),
+                                          **k), lambda r: r.loop_closer.device),
+    "LoopCloser": (lambda **k: LoopCloser(CFG, _state(), None, **k), lambda r: r.device),
+    "sim3.identity": (lambda **k: sim3.identity(**k), lambda r: r[1].device),
     "FusedContext": (lambda **k: FusedContext(CFG, n_map=64, **k), lambda r: r.device),
     "build_frame": (lambda **k: build_frame(_image(), CFG, n_features=50, **k),
                     lambda r: r._dev["xy"].device),
