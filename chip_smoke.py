@@ -92,6 +92,22 @@ Phases (any failure raises, so the script exits non-zero):
                  host synchronisations by source line (none may lie inside
                  the solvers' iterations), peak device memory. The FAST
                  kernel is not on this phase's path.
+ 10. sequence    the command line and the renderer on the card. The
+                 renderer (`io/dataset.py:SyntheticSequence`, no cv2) draws
+                 frames 0-27 of `xyz` seed 3 on the card, held to the
+                 cv2-rendered frames of the system fixture (equal bits, the
+                 CPU test's bound) and to its own CPU render; ms per frame.
+                 Then, in a process of its own, `python -m
+                 orbslam_jpminipc_torch.run --dataset synthetic:xyz --frames
+                 300 --seed 0 --save-world ...` (the default system, frames
+                 rendered on the card), held to EVAL_r05.json with margins:
+                 at least 290 of 300 frames tracked, keyframe ATE at most 5.9
+                 mm, no loop closed, one TUM line per keyframe; ms per
+                 `Slam.process` by frame group and one FAST launch a frame.
+                 Last the resume: a fresh default `Slam` loads the saved
+                 world (arrays equal to the file, tracker LOST) and takes
+                 frames 100-160 of the same sequence; it must be WORKING
+                 again within 10 frames.
 
 `--phases a,b` runs only the named phases (after device and build) and
 prints no result line. `--compare TREE TREE ...` runs the throughput,
@@ -149,6 +165,17 @@ LOOP_COUNT_REL = 0.03     # mutual matches, inlier counts, guided total
 LOOP_SIM3_TOL = 1e-3      # scale, rotation entries, translation over the median depth
 LOOP_CHI2_REL = 0.05      # the essential graph's and global BA's final chi2
 LOOP_CENTRE_TOL = 1e-2    # camera centres after the correction, over the median depth
+# the sequence phase: the renderer against cv2's frames (tests/test_torch_dataset.py
+# holds it to equal bits on the CPU), and run.py's xyz:300 against EVAL_r05.json
+# (298/300 tracked, kf-ATE 0.9 mm, 0 loops closed) with margins: the port
+# tracks each frame to its end where the reference pipelines its tracking
+RENDER_EQUAL_SHARE = 1.0
+RENDER_MAX_DIFF = 0
+SEQ_FRAMES = 300
+SEQ_TRACKED_MIN = 290
+SEQ_KF_ATE_MAX = 0.9e-3 + SYS_ATE_MARGIN
+RESUME_FROM, RESUME_TO = 100, 160   # frames fed to the resumed system
+RESUME_WITHIN = 10                  # WORKING again within this many (tests/test_torch_checkpoint.py)
 # the card's published peaks (NVIDIA H100 SXM data sheet) for the kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -1142,7 +1169,35 @@ def phase_reloc_async(torch, fast_cuda, smi):
     if loops_run == 0 or n_detect != loops_run or slam.n_loops_closed != 0:
         raise AssertionError(f"[run_a] {loops_run} loop stages, {n_detect} loop_detect, "
                              f"{slam.n_loops_closed} loops closed")
+    for name, res in (("run_r", res_r), ("run_a", res_a)):
+        res["upload_and_epnp_waits"] = _upload_and_epnp_waits(res["sync_sites"])
+        log(f"[{name}] waits at an upload or at EPnP's index sets: "
+            f"{res['upload_and_epnp_waits'] or 'none'}")
+        if res["upload_and_epnp_waits"]:
+            raise AssertionError(f"[{name}] an upload or EPnP's index sets waited for the device: "
+                                 f"{res['upload_and_epnp_waits']}")
     return {"library_solves_ms": solves, "run_r": res_r, "run_a": res_a}
+
+
+def _upload_and_epnp_waits(sync_sites):
+    """The synchronisations (by frame group, source line) made by a host ->
+    device upload (`utils/host.py:upload`, which every upload of the
+    tracking path goes through, pinned and queued) or by EPnP anywhere but
+    its library factorizations (`eigh`, `svd`, `pinv`, which check their
+    result on the host and have no form without the check)."""
+    import linecache
+
+    bad = {}
+    for kind, tally in sync_sites.items():
+        for site, n in tally.items():
+            path, _, line = site.rpartition(":")
+            text = linecache.getline(os.path.join(REPO, path), int(line)) if line.isdigit() else ""
+            upload = path.endswith("utils/host.py") and "pin_memory" in text
+            epnp = path.endswith("solvers/epnp.py") and not any(
+                f in text for f in ("eigh", "svd", "pinv"))
+            if upload or epnp:
+                bad.setdefault(kind, {})[site] = n
+    return bad
 
 
 # ---- the constructed loop ------------------------------------------------------
@@ -1464,6 +1519,195 @@ def phase_loop(torch, fast_cuda, smi):
             "sync_sites": sites, "peak_mem_bytes": int(peak), "fast_launches": 0}
 
 
+# ---- the sequence: renderer, command line, resume ---------------------------
+
+# run in a process of its own: the command line's main path, each
+# `Slam.process` call timed to its return and sorted by frame group, the FAST
+# kernel's launches counted from 0 over the run
+_SEQUENCE_RUN = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from orbslam_jpminipc_torch import run
+from orbslam_jpminipc_torch.frontend.tracking import TrackState
+from orbslam_jpminipc_torch.ops import fast_cuda
+from orbslam_jpminipc_torch.pipeline.local_mapping import LocalMapper
+from orbslam_jpminipc_torch.pipeline.system import Slam
+rows, kfs = [], []
+process, insert = Slam.process, LocalMapper.insert_keyframe
+
+def timed(self, image, timestamp=0.0):
+    was, k0 = self.tracker.state, len(kfs)
+    t0 = time.perf_counter()
+    out = process(self, image, timestamp)
+    ms = (time.perf_counter() - t0) * 1e3
+    kind = ("lost" if TrackState.LOST in (was, out[0]) else "init" if was != TrackState.WORKING
+            else "keyframe" if len(kfs) > k0 else "other")
+    rows.append({"ms": ms, "kind": kind, "state": out[0].value})
+    return out
+
+Slam.process = timed
+LocalMapper.insert_keyframe = lambda self, frame: (kfs.append(frame.frame_id), insert(self, frame))[1]
+fast_cuda.build()
+fast_cuda.LAUNCHES = 0
+t0 = time.perf_counter()
+slam = run.main(sys.argv[2:])
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+print("RESULT " + json.dumps({
+    "rows": rows, "fast_launches": fast_cuda.LAUNCHES, "wall_s": wall,
+    "frames_tracked": len(slam.trajectory), "n_keyframes": slam.n_keyframes,
+    "n_points": slam.n_points, "loops_closed": slam.n_loops_closed,
+    "keyframes_inserted": len(kfs), "peak_mem_bytes": torch.cuda.max_memory_allocated()}))
+"""
+
+
+def _tum_centres(path):
+    rows = np.array([line.split() for line in open(path) if line.strip()], np.float64)
+    if rows.ndim != 2 or rows.shape[1] != 8:
+        raise AssertionError(f"[sequence] {path} is not a TUM trajectory file")
+    return rows[:, 0], rows[:, 1:4]
+
+
+def phase_sequence(torch, fast_cuda, smi):
+    from orbslam_jpminipc_torch.config import SlamConfig
+    from orbslam_jpminipc_torch.frontend.tracking import TrackState
+    from orbslam_jpminipc_torch.io.checkpoint import _ARRAY_FIELDS, load_slam
+    from orbslam_jpminipc_torch.io.dataset import SyntheticSequence
+    from orbslam_jpminipc_torch.io.trajectory import ate_rmse
+    from orbslam_jpminipc_torch.pipeline.system import Slam
+    from orbslam_jpminipc_torch.vocab.vocabulary import load_vocabulary
+
+    res = {"card": smi}
+    # -- the renderer against cv2's frames and its own CPU render ----------
+    sf = dict(np.load(SLAM_FIXTURE))
+    t0 = time.perf_counter()
+    seq45 = SyntheticSequence(45, trajectory="xyz", seed=3, device="cuda")
+    build_s = time.perf_counter() - t0
+    n_eq = n_px = worst = 0
+    for i in range(len(sf["images"])):
+        got = seq45.render(i).cpu().numpy()
+        d = np.abs(got.astype(np.int64) - sf["images"][i].astype(np.int64))
+        n_eq, n_px, worst = n_eq + int((d == 0).sum()), n_px + d.size, max(worst, int(d.max()))
+    cpu_seq = SyntheticSequence(45, trajectory="xyz", seed=3, device="cpu")
+    cpu_equal = all(torch.equal(seq45.render(i).cpu(), cpu_seq.render(i)) for i in (0, 13, 27))
+    for i in range(3):
+        seq45.render(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(20):
+        seq45.render(i)
+    torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t0) / 20 * 1e3
+    res["renderer"] = {"frames": len(sf["images"]), "equal_share": n_eq / n_px,
+                       "max_diff": worst, "card_equals_cpu_render": cpu_equal,
+                       "ms_per_frame": render_ms, "build_s": build_s}
+    log(f"[sequence] {smi}: renderer on the card vs cv2's frames 0-27 of xyz seed 3: equal "
+        f"share {n_eq / n_px:.9f}, max diff {worst}; card == CPU render on 3 frames: "
+        f"{cpu_equal}; {render_ms:.2f} ms per frame (host clock, synchronised); the "
+        f"sequence's textures built in {build_s:.2f} s")
+    if n_eq / n_px < RENDER_EQUAL_SHARE or worst > RENDER_MAX_DIFF or not cpu_equal:
+        raise AssertionError(f"[sequence] renderer off cv2's frames: {res['renderer']}")
+
+    # -- run.py xyz:300, in a process of its own ------------------------------
+    tmp = os.path.join(REPO, "build", "chip_smoke_sequence")   # .gitignore lists build/
+    os.makedirs(tmp, exist_ok=True)
+    kf_txt, world = os.path.join(tmp, "kf.txt"), os.path.join(tmp, "w.npz")
+    args = ["--dataset", "synthetic:xyz", "--frames", str(SEQ_FRAMES), "--seed", "0",
+            "--out", kf_txt, "--save-world", world]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _SEQUENCE_RUN, REPO, *args], cwd=REPO,
+                         capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
+    if out.returncode != 0 or not lines:
+        sys.stderr.write(out.stdout[-3000:] + out.stderr[-5000:])
+        raise AssertionError("[sequence] python -m orbslam_jpminipc_torch.run failed")
+    for ln in out.stdout.splitlines():
+        if not ln.startswith("RESULT "):
+            log(f"[sequence] run.py: {ln}")
+    r = json.loads(lines[-1][len("RESULT "):])
+    rows = r.pop("rows")
+    groups = {k: _percentiles([x["ms"] for x in rows if x["kind"] == k])
+              for k in ("init", "keyframe", "other", "lost")}
+    gt = SyntheticSequence._trajectory(None, SEQ_FRAMES, "xyz")
+    by_ts = {round(i / 30.0, 6): gt[i] for i in range(SEQ_FRAMES)}
+    ts, est = _tum_centres(kf_txt)
+    gtc = np.stack([-by_ts[round(t, 6)][0].T @ by_ts[round(t, 6)][1] for t in ts]).astype(np.float64)
+    kf_ate = ate_rmse(est, gtc)
+    r.update({"process_wall_s": wall, "ms_per_frame": groups, "kf_ate": kf_ate,
+              "tum_lines": len(ts), "frames": len(rows)})
+    res["run"] = r
+    for k, g in groups.items():
+        log(f"[sequence] {smi}: run.py xyz:{SEQ_FRAMES} {k} frames ms per process (to the "
+            f"call's return): {json.dumps(g)}")
+    log(f"[sequence] {smi}: run.py xyz:{SEQ_FRAMES}: tracked {r['frames_tracked']}/{len(rows)}, "
+        f"keyframes {r['n_keyframes']} (inserted {r['keyframes_inserted']}), points "
+        f"{r['n_points']}, loops closed {r['loops_closed']}, kf ATE {kf_ate * 1e3:.3f} mm "
+        f"(EVAL_r05: 298/300, 0.9 mm, 0), TUM lines {len(ts)}; run.main {r['wall_s']:.1f} s, "
+        f"the process {wall:.1f} s; FAST launches {r['fast_launches']}; peak device memory "
+        f"{r['peak_mem_bytes']} bytes")
+    if len(rows) != SEQ_FRAMES or r["fast_launches"] != SEQ_FRAMES:
+        raise AssertionError(f"[sequence] {len(rows)} frames, {r['fast_launches']} FAST launches, "
+                             f"expected one a frame over {SEQ_FRAMES}")
+    if r["frames_tracked"] < SEQ_TRACKED_MIN:
+        raise AssertionError(f"[sequence] tracked {r['frames_tracked']} < {SEQ_TRACKED_MIN}")
+    if not np.isfinite(kf_ate) or kf_ate > SEQ_KF_ATE_MAX:
+        raise AssertionError(f"[sequence] keyframe ATE {kf_ate} above {SEQ_KF_ATE_MAX}")
+    if r["loops_closed"] != 0:
+        raise AssertionError(f"[sequence] {r['loops_closed']} loops closed, the reference closes 0")
+    if len(ts) != r["n_keyframes"]:
+        raise AssertionError(f"[sequence] {len(ts)} TUM lines for {r['n_keyframes']} keyframes")
+
+    # -- resume: a fresh default system loads the world ------------------------
+    cfg = SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, k1=0.0, k2=0.0, p1=0.0, p2=0.0,
+                     n_features=1000, pipelined_tracking=False)
+    slam = Slam(cfg, vocab=load_vocabulary(VOCAB))
+    load_slam(world, slam)
+    z = np.load(world)
+    differ = [f for f in _ARRAY_FIELDS if not np.array_equal(getattr(slam.map, f), z[f])]
+    differ += [f for f in ("bow_ids", "bow_vals", "bow_n", "present")
+               if not np.array_equal(getattr(slam.kfdb, f), z["kfdb_" + f])]
+    n_loaded = slam.n_keyframes
+    if differ or slam.tracker.state != TrackState.LOST:
+        raise AssertionError(f"[sequence] loaded arrays differ ({differ}) or the tracker is "
+                             f"{slam.tracker.state.name}")
+    seq = SyntheticSequence(SEQ_FRAMES, trajectory="xyz", seed=0, device="cuda")
+    frames = [seq.get(i) for i in range(RESUME_FROM, RESUME_TO + 1)]
+    torch.cuda.synchronize()
+    states, ms = [], []
+    fast_cuda.LAUNCHES = 0
+    for img, t, _ in frames:
+        t0 = time.perf_counter()
+        state, _ = slam.process(img, t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        states.append(state)
+    launches = fast_cuda.LAUNCHES
+    back = next((k for k, st in enumerate(states) if st == TrackState.WORKING), None)
+    lost_ms = ms[:back + 1] if back is not None else ms
+    after = states[back:] if back is not None else []
+    res["resume"] = {
+        "keyframes_loaded": n_loaded, "frames": len(states),
+        "working_again_after": back, "frame": None if back is None else RESUME_FROM + back,
+        "lost_frame_ms": lost_ms, "working_after_resume": sum(st == TrackState.WORKING for st in after),
+        "ms_after": _percentiles(ms[back + 1:] if back is not None else []),
+        "fast_launches": launches,
+    }
+    log(f"[sequence] {smi}: resume: {res['resume']['keyframes_loaded']} keyframes loaded, arrays "
+        f"equal to the file, LOST; WORKING again on frame {res['resume']['frame']} (after "
+        f"{back} frames); ms of the frames until then (synchronised) "
+        f"{[round(x, 1) for x in lost_ms]}; WORKING on {res['resume']['working_after_resume']} of "
+        f"the {len(after)} frames from there; FAST launches {launches} for {len(states)} frames")
+    if back is None or back >= RESUME_WITHIN:
+        raise AssertionError(f"[sequence] the resumed system did not relocalize within "
+                             f"{RESUME_WITHIN} frames: {[s.name for s in states[:RESUME_WITHIN]]}")
+    if launches != len(states):
+        raise AssertionError(f"[sequence] FAST launched {launches} times over {len(states)} frames")
+    res["fast_launches"] = r["fast_launches"]
+    return res
+
+
 # what `--compare` runs in each tree: that tree's own phases, quietly
 _COMPARE_RUN = r"""
 import json, sys
@@ -1511,6 +1755,7 @@ def compare(trees) -> int:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
     if "--compare" in sys.argv[1:]:
@@ -1541,6 +1786,7 @@ def main() -> int:
         "system": lambda: phase_system(torch, fast_cuda, smi),
         "reloc_async": lambda: phase_reloc_async(torch, fast_cuda, smi),
         "loop": lambda: phase_loop(torch, fast_cuda, smi),
+        "sequence": lambda: phase_sequence(torch, fast_cuda, smi),
     }
     # `--phases a,b` runs only those (after device and build), for work on
     # one phase; such a run prints no result line
@@ -1564,6 +1810,8 @@ def main() -> int:
         return 0
 
     k = report["kernel"]["frame"]
+    log(f"chip_smoke: {report['device']}: the whole script took "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "fast9_score_nonmax3x3",
         "route": "cuda",
@@ -1575,6 +1823,7 @@ def main() -> int:
         "launches_reloc_run": report["reloc_async"]["run_r"]["fast_launches"],
         "launches_async_run": report["reloc_async"]["run_a"]["fast_launches"],
         "launches_loop_phase": report["loop"]["fast_launches"],
+        "launches_sequence_phase": report["sequence"]["fast_launches"],
         "max_abs_err": report["kernel"]["max_abs_err"],
         # per frame: one launch over the 8 pyramid levels, the select included
         "ms": k["ms"], "plain_ms": k["plain_ms"],

@@ -5,17 +5,20 @@ module and public function names (so each counterpart is easy to find) and
 keeps its layouts at the public functions: features as (N, 2) xy, (N, 32)
 uint8 descriptors, rotations as (3, 3) world->camera.
 
-Ported so far: the steady-state WORKING tracking step
-(frontend/fused_track.py) and everything it runs — pyramid, FAST (with a
-hand-written CUDA kernel, ops/fast_cuda.py + csrc/fast.cu), ORB, Hamming
-matching, projection search and the pose-only LM.
+The whole single-device system is ported (`pipeline/system.py:Slam`), with
+the one hand-written CUDA kernel (FAST, ops/fast_cuda.py + csrc/fast.cu),
+and its command line (`python -m orbslam_jpminipc_torch.run`).
 
 Subpackages
 -----------
-geometry  : SE3 algebra and the pinhole camera.
+geometry  : SE3/Sim3 algebra, the pinhole camera, triangulation, epipolar.
 ops       : pyramid, FAST, ORB, extraction, Hamming and projection matching.
-solvers   : closed-form 3x3/6x6 linear algebra, reprojection model, pose LM.
-frontend  : the fused WORKING-state tracking step.
+solvers   : initializer, EPnP/PnP, pose LM, local and global BA, Sim3, essential graph.
+map       : host map state, its device mirror, keyframe database, culling.
+vocab     : binary vocabularies (flat and tree) and the BoW transform.
+frontend  : frames, the tracking state machine, the fused WORKING step.
+pipeline  : local mapping, loop closing and the `Slam` orchestrator.
+io        : the synthetic renderer, TUM directories and PNGs, trajectories, checkpoints.
 """
 
 __version__ = "0.1.0"

@@ -17,7 +17,7 @@ from ..config import SlamConfig
 from ..geometry import camera as cam
 from ..ops import extractor
 from ..utils.device import resolve_device
-from ..utils.host import fetch
+from ..utils.host import fetch, upload
 
 _FEAT_FIELDS = ("xy", "xy_un", "level", "angle", "response", "desc", "valid")
 
@@ -59,7 +59,7 @@ class Frame:
         frame was extracted there (no copy), else an upload of the host copy."""
         if self._dev is not None and name in self._dev and self._dev[name].device == torch.device(device):
             return self._dev[name]
-        return torch.from_numpy(np.ascontiguousarray(self._get(name))).to(device)
+        return upload(self._get(name), device)
 
     def _get(self, name: str) -> np.ndarray:
         if name not in self._host:
@@ -106,9 +106,7 @@ def build_frame(image, cfg: SlamConfig, frame_id: int = 0, timestamp: float = 0.
     """Extract features and undistort keypoints (Frame.cc:56-123). `image`
     is a (H, W) uint8 host array or tensor; the extraction runs on
     `device` (on the card, FAST is the CUDA kernel)."""
-    if cfg.use_harris_score:
-        raise ValueError("the Harris score is not ported; use FAST scores")
-    img = torch.as_tensor(image).to(resolve_device(device))
+    img = upload(image, resolve_device(device))
     feats = extractor.extract(
         img.to(torch.float32),
         n_features=n_features or cfg.n_features,
@@ -116,11 +114,11 @@ def build_frame(image, cfg: SlamConfig, frame_id: int = 0, timestamp: float = 0.
         scale_factor=cfg.scale_factor,
         fast_th=cfg.fast_threshold,
         fast_min_th=cfg.fast_min_threshold,
+        use_harris_score=cfg.use_harris_score,
     )
     if np.any(cfg.dist4 != 0):
         xy_un = cam.undistort_points(
-            feats.xy, torch.from_numpy(cfg.K4).to(img.device),
-            torch.from_numpy(cfg.dist4).to(img.device), iters=8)
+            feats.xy, upload(cfg.K4, img.device), upload(cfg.dist4, img.device), iters=8)
     else:
         xy_un = feats.xy
     dev = {

@@ -37,6 +37,7 @@ from ..ops import matching
 from ..ops.extractor import Features, extract
 from ..solvers import pose_opt
 from ..utils.device import resolve_device
+from ..utils.host import upload
 
 MAX_SLICE = 4096  # local-map slice capacity (points of the covisible set)
 
@@ -98,17 +99,17 @@ def slice_from_packed(buf: np.ndarray, device) -> MapSlice:
     if buf.ndim != 2 or buf.shape[1] != 17:
         raise ValueError(f"packed slice must be (M, 17), got {buf.shape}")
     desc = np.ascontiguousarray(buf[:, 8:16]).view(np.uint8).reshape(-1, 32)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    t = lambda a: upload(a, device)
     return MapSlice(xyz=t(buf[:, 0:3]), normal=t(buf[:, 3:6]),
                     min_dist=t(buf[:, 6]), max_dist=t(buf[:, 7]),
                     desc=t(desc), n_obs=t(buf[:, 16]))
 
 
 def pose_from_numpy(R, t, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Host (3, 3) rotation and (3,) translation -> float32 device tensors."""
-    R = torch.as_tensor(np.asarray(R, np.float32).reshape(3, 3)).to(device)
-    t = torch.as_tensor(np.asarray(t, np.float32).reshape(3)).to(device)
-    return R, t
+    """Host (3, 3) rotation and (3,) translation -> float32 device tensors
+    (queued uploads)."""
+    return (upload(np.asarray(R, np.float32).reshape(3, 3), device),
+            upload(np.asarray(t, np.float32).reshape(3), device))
 
 
 class _PassResult(NamedTuple):
@@ -124,8 +125,6 @@ class FusedStep(nn.Module):
 
     def __init__(self, cfg: SlamConfig, n_map: int = MAX_SLICE):
         super().__init__()
-        if cfg.use_harris_score:
-            raise ValueError("the Harris score is not ported; use FAST scores")
         self.cfg = cfg
         self.n_map = n_map
         self.n_levels = cfg.n_levels
@@ -189,6 +188,7 @@ class FusedStep(nn.Module):
             n_features=cfg.n_features, n_levels=cfg.n_levels,
             scale_factor=cfg.scale_factor, fast_th=cfg.fast_threshold,
             fast_min_th=cfg.fast_min_threshold,
+            use_harris_score=cfg.use_harris_score,
         )
         xy_un = (undistort_points(feats.xy, self.K4, self.dist4)
                  if self.has_dist else feats.xy)
@@ -302,8 +302,9 @@ class FusedContext:
 
     @torch.no_grad()
     def track(self, image_u8) -> FusedOut:
-        """Run one step on a (H, W) uint8 frame (host array or tensor)."""
-        img = torch.as_tensor(image_u8).to(self.device)
+        """Run one step on a (H, W) uint8 frame (host array or tensor; a
+        tensor already on the device is not copied)."""
+        img = upload(image_u8, self.device)
         out = self.step(img, self.R, self.t, self.vel_R, self.vel_t,
                         self.has_vel, self.slice)
         self.R, self.t = out.R, out.t

@@ -36,7 +36,7 @@ from ..map.map_state import MapState
 from ..ops import matching
 from ..solvers import initializer, pnp, pose_opt
 from ..utils.device import resolve_device
-from ..utils.host import fetch
+from ..utils.host import fetch, upload
 from ..utils.tracing import get_tracer
 from . import fused_track
 from .frame import Frame
@@ -228,7 +228,8 @@ class Tracker:
         self.mapper_busy = None      # fn() -> bool (mbAcceptKeyFrames inverse)
 
     def _put(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """A host array on the tracker's device (a queued, pinned upload)."""
+        return upload(a, self.device)
 
     def _compute_bounds(self):
         """Undistorted image bounds (Frame.cc:321-349)."""
@@ -630,7 +631,7 @@ class Tracker:
             p(prev_xw), p(prev_has), p(w.astype(np.float32)),
             p(np.asarray(frame.R, np.float32)), p(np.asarray(frame.t, np.float32)), self.K4,
             p(self.bounds), self.scale_factors,
-            torch.tensor(mult, dtype=torch.float32, device=self.device),
+            torch.full((), mult, dtype=torch.float32, device=self.device),
         )
         visible, feat_q, has, R, t, inliers, n_inl = fetch(
             visible, feat_q, has, res.R, res.t, res.inliers, res.n_inliers)

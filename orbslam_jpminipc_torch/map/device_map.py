@@ -23,6 +23,7 @@ from ..geometry import epipolar, triangulate
 from ..ops import matching
 from ..solvers import ba
 from ..utils.device import resolve_device
+from ..utils.host import upload
 
 TRI_CANDS = 512   # per-neighbor triangulation candidate capacity
 FUSE_CANDS = 256  # per-target fuse match capacity
@@ -56,19 +57,15 @@ class DeviceMap:
 
     def put(self, a) -> torch.Tensor:
         """A host array as a tensor on the mirror's device (int64 indices
-        stay int64; float64 becomes float32). On a card the array is staged
-        in pinned host memory and the copy queued behind the stream's work:
-        a plain `.to(device)` of pageable memory waits for the stream to
-        drain, which would make every upload of a mapping stage wait for
-        the programs in flight."""
+        stay int64; float64 becomes float32), staged in pinned memory and
+        queued behind the stream's work (`utils.host.upload`): a plain
+        `.to(device)` of pageable memory waits for the stream to drain,
+        which would make every upload of a mapping stage wait for the
+        programs in flight."""
         a = np.asarray(a)
         if a.dtype == np.float64:
             a = a.astype(np.float32)
-        # (ascontiguousarray gives a 0-d array one dimension: undo that)
-        t = torch.from_numpy(np.ascontiguousarray(a)).reshape(a.shape)
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return upload(a, self.device)
 
     # --- host -> device sync ------------------------------------------
 

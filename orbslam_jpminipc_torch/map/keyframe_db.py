@@ -26,10 +26,9 @@ s = sum_common min(v_i, w_i)  (ScoringObject.cpp:30-68 algebra).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..utils.device import resolve_device
-from ..utils.host import fetch
+from ..utils.host import fetch, upload
 from ..utils.tracing import get_tracer
 from ..vocab import tree as vtree
 from ..vocab import vocabulary as voc
@@ -57,7 +56,7 @@ class KeyFrameDatabase:
         """Word id per descriptor: the transform on the database's device,
         one host read."""
         with get_tracer().stage("bow_word_ids"):
-            d = torch.from_numpy(np.ascontiguousarray(desc)).to(self.device)
+            d = upload(desc, self.device)
             if isinstance(self.vocab, vtree.TreeVocabulary):
                 wid = vtree.word_ids(self.vocab, d)
             else:

@@ -7,7 +7,8 @@ observation assembly and batched AddObservation. It is host code, not a
 device kernel. At first use it is built with g++ into build/torch_kernels/
 under the checkout (named by a hash of the source and flags) and loaded
 with ctypes; without a toolchain the pure-Python loops of the callers
-apply, with the same result.
+apply, with the same result. `load_library` does the same for the other
+host sources here (`png_unfilter.cpp`, used by io/png.py).
 """
 from __future__ import annotations
 
@@ -32,23 +33,36 @@ _lib = None
 _failed = False
 
 
-def library_path() -> Path:
-    tag = hashlib.sha256(_SRC.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libmapgraph_{tag}.so"
+def library_path(src: Path = _SRC) -> Path:
+    tag = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{tag}.so"
 
 
-def _build(so: Path) -> bool:
+def _build(src: Path, so: Path) -> bool:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     try:
-        subprocess.run(["g++", *CXX_FLAGS, str(_SRC), "-o", str(tmp)],
+        subprocess.run(["g++", *CXX_FLAGS, str(src), "-o", str(tmp)],
                        check=True, capture_output=True, timeout=120)
         os.replace(tmp, so)
         return True
     except Exception as e:  # noqa: BLE001
-        print(f"[native] mapgraph build failed ({e}); using Python fallback",
+        print(f"[native] {src.name} build failed ({e}); using the Python version",
               file=sys.stderr)
         return False
+
+
+def load_library(src: Path):
+    """Build `src` (at first use) and load it with ctypes; None without a
+    toolchain."""
+    so = library_path(src)
+    if not so.exists() and not _build(src, so):
+        return None
+    try:
+        return ctypes.CDLL(str(so))
+    except OSError as e:
+        print(f"[native] {so.name} load failed ({e})", file=sys.stderr)
+        return None
 
 
 def get_lib():
@@ -57,14 +71,8 @@ def get_lib():
     with _lock:
         if _lib is not None or _failed:
             return _lib
-        so = library_path()
-        if not so.exists() and not _build(so):
-            _failed = True
-            return None
-        try:
-            lib = ctypes.CDLL(str(so))
-        except OSError as e:
-            print(f"[native] mapgraph load failed ({e})", file=sys.stderr)
+        lib = load_library(_SRC)
+        if lib is None:
             _failed = True
             return None
         i32p = ctypes.POINTER(ctypes.c_int32)

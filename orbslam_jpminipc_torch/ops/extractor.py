@@ -15,8 +15,10 @@ the reference's answer:
     level on the host: `extract` reads all levels' flags in one transfer
     and runs the exact slow path only for levels that need it.
 
-The Harris score (`use_harris_score`) is not ported: the shipping
-configuration runs FAST scores.
+With `use_harris_score` (the settings' `ORBextractor.nScoreType: 0`) the
+selected corners' `response` is their Harris response
+(`fast.harris_score_map`, ORBextractor.cc:678-701); the selection itself
+stays on the FAST scores, so the FAST launch does not change.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ class Features(NamedTuple):
     xy: torch.Tensor        # (N, 2) float32 — (x, y) at level-0 scale
     level: torch.Tensor     # (N,) int32 — pyramid level
     angle: torch.Tensor     # (N,) float32 — IC angle, degrees
-    response: torch.Tensor  # (N,) float32 — FAST score
+    response: torch.Tensor  # (N,) float32 — FAST (or Harris) score
     desc: torch.Tensor      # (N, 32) uint8 — packed rBRIEF
     valid: torch.Tensor     # (N,) bool
 
@@ -143,11 +145,12 @@ def _level_xy(idx: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def _select_level(img: torch.Tensor, quota: int, fast_th: float,
-                  fast_min_th: float, cell: int):
+                  fast_min_th: float, cell: int, use_harris_score: bool = False):
     """One pyramid level's keypoint selection -> (xy, response, valid)."""
     score = _level_score(img, fast_th, fast_min_th, cell)
     idx, valid = _select_in_cells(score, quota, cell)
-    return _level_xy(idx, img.shape[1]), score.reshape(-1)[idx], valid
+    resp = fast.harris_score_map(img) if use_harris_score else score
+    return _level_xy(idx, img.shape[1]), resp.reshape(-1)[idx], valid
 
 
 def extract(
@@ -158,6 +161,7 @@ def extract(
     fast_th: float = 20.0,
     fast_min_th: float = 7.0,
     cell: int = 32,
+    use_harris_score: bool = False,
 ) -> Features:
     """Extract ORB features from a grayscale float32 (H, W) image in [0, 255]."""
     levels = pyramid.build_pyramid(image, n_levels, scale_factor)
@@ -183,7 +187,8 @@ def extract(
         p37.append(both[:, 1])
         xys.append(xy * float(np.float32(scale_factor ** lvl)))
         lvls.append(torch.full((quota,), lvl, dtype=torch.int32, device=image.device))
-        resps.append(score.reshape(-1)[idx])
+        resp = fast.harris_score_map(img) if use_harris_score else score
+        resps.append(resp.reshape(-1)[idx])
         valids.append(valid)
 
     angle = orb.ic_angle_from_patches(torch.cat(p31))

@@ -128,3 +128,22 @@ def level_scores(levels, fast_th: float, fast_min_th: float, border: int = 0,
             f"FAST level_scores: levels on {[str(img.device) for img in levels]}")
     return [cell_select(detect(img, fast_min_th, border), fast_th, cell)
             for img in levels]
+
+
+def harris_score_map(img: torch.Tensor, block_size: int = 7, k: float = 0.04) -> torch.Tensor:
+    """Dense Harris response (HarrisResponses, src/ORBextractor.cc:79-120):
+    central differences on the edge-padded image, a block_size x
+    block_size unnormalized box sum (zero outside the image), scaled by
+    1/(4 * block_size * 255) per derivative. The extractor's Harris score
+    type re-scores the selected FAST corners with it."""
+    h, w = img.shape
+    padded = F.pad(img[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+    ix = (padded[1:1 + h, 2:2 + w] - padded[1:1 + h, 0:w]) * 0.5
+    iy = (padded[2:2 + h, 1:1 + w] - padded[0:h, 1:1 + w]) * 0.5
+    r = block_size // 2
+    box = torch.ones((1, 1, block_size, block_size), dtype=img.dtype, device=img.device)
+    sums = F.conv2d(torch.stack([ix * ix, iy * iy, ix * iy])[:, None], box, padding=r)[:, 0]
+    scale = 1.0 / (4 * block_size * 255.0)
+    s2 = scale * scale
+    a, b, c = sums[0] * s2, sums[1] * s2, sums[2] * s2
+    return a * b - c * c - k * (a + b) * (a + b)

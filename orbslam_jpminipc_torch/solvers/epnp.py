@@ -15,9 +15,12 @@ Weighted form: every per-point quantity carries a weight (1/0 mask), so
 the same program serves the 4-point minimal sets AND the all-inlier Refine
 (:232-277).
 
-The eigendecompositions, the SVD, the pseudo-inverse and the small solves
-are library calls (LAPACK on the CPU, cuSOLVER on a card), as they are in
-the reference. The four smallest eigenvectors of MtM span a near-null
+The eigendecompositions, the SVD, the inverse and the small solves are
+library calls (LAPACK on the CPU, cuSOLVER on a card), as they are in the
+reference. On a card `eigh`, `svd` and `pinv` check their result on the
+host (none has a form without the check); the small solves are the `_ex`
+form, and the fixed index sets are slices: a Python list as an index is
+uploaded, and waited for, on every call. The four smallest eigenvectors of MtM span a near-null
 space: the individual vectors are not determined to rounding, the poses
 that come out of them are.
 """
@@ -25,9 +28,12 @@ from __future__ import annotations
 
 import torch
 
-_IDX6 = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
-_IDX6_A = [a for a, _ in _IDX6]
-_IDX6_B = [b for _, b in _IDX6]
+
+def _pair_diffs(x):
+    """x[..., a, :] - x[..., b, :] over the six pairs (0, 1), (0, 2),
+    (0, 3), (1, 2), (1, 3), (2, 3) of dim -2, by slices."""
+    return torch.cat([x[..., 0:1, :] - x[..., 1:4, :], x[..., 1:2, :] - x[..., 2:4, :],
+                      x[..., 2:3, :] - x[..., 3:4, :]], dim=-2)
 
 
 def _weighted_control_points(xw, w):
@@ -56,7 +62,8 @@ def _barycentric(xw, ctrl):
     # control points collapse (third eigenvalue ~ 0) and C goes singular;
     # the reference inverts CC with CV_SVD (PnPsolver.cc:383-406), which
     # degrades gracefully on planar scenes (walls and floors are the common
-    # relocalization case)
+    # relocalization case). The truncation decides those sets, so the
+    # pseudo-inverse stays, host check and all
     Cinv = torch.linalg.pinv(C, rtol=1e-6)
     return torch.einsum("...ij,...mj->...mi", Cinv, X)
 
@@ -77,7 +84,7 @@ def _fill_MtM(alphas, uv, w, K4):
 
 def _rho(ctrl):
     """Squared distances between the 4 world control points (..., 6)."""
-    d = ctrl[..., _IDX6_A, :] - ctrl[..., _IDX6_B, :]
+    d = _pair_diffs(ctrl)
     return torch.sum(d * d, dim=-1)
 
 
@@ -85,7 +92,7 @@ def _v_diffs(V):
     """V: (..., 4, 4, 3) null-space vectors as per-control-point 3-vectors
     -> dv (..., 4, 6, 3): differences of control-point coordinates for
     each null vector and each of the 6 pairs."""
-    return V[..., :, _IDX6_A, :] - V[..., :, _IDX6_B, :]
+    return _pair_diffs(V)
 
 
 def _L6x10(dv):
@@ -126,7 +133,7 @@ def _safe(b):
 
 def _betas_approx_1(L, rho):
     """betas_approx_1: [b11 b12 b13 b14] (:639-664)."""
-    x = _lstsq(L[..., [0, 1, 3, 6]], rho)
+    x = _lstsq(torch.cat([L[..., 0:2], L[..., 3:4], L[..., 6:7]], dim=-1), rho)
     b1 = _signed_sqrt(x[..., 0])
     rest = x[..., 1:] / _safe(b1[..., None])
     return torch.cat([b1[..., None], rest], dim=-1)
@@ -134,7 +141,7 @@ def _betas_approx_1(L, rho):
 
 def _betas_approx_2(L, rho):
     """betas_approx_2: [b11 b12 b22] (:672-698)."""
-    x = _lstsq(L[..., [0, 1, 2]], rho)
+    x = _lstsq(L[..., 0:3], rho)
     b1 = _signed_sqrt(x[..., 0])  # keeps the reference's b1*b1 sign convention
     b2 = torch.sqrt(torch.abs(x[..., 2]))
     # sign consistency via b12
@@ -145,7 +152,7 @@ def _betas_approx_2(L, rho):
 
 def _betas_approx_3(L, rho):
     """betas_approx_3: [b11 b12 b22 b13 b23] (:706-731)."""
-    x = _lstsq(L[..., [0, 1, 2, 3, 4]], rho)
+    x = _lstsq(L[..., 0:5], rho)
     b1 = _signed_sqrt(x[..., 0])
     b2 = torch.sqrt(torch.abs(x[..., 2]))
     b2 = torch.where(x[..., 1] < 0, -b2, b2)
@@ -225,7 +232,7 @@ def epnp_pose(xw, uv, w, K4):
     V = vecs[..., :, :4].transpose(-1, -2).reshape(*MtM.shape[:-2], 4, 4, 3)
     rho = _rho(ctrl)
     L = _L6x10(_v_diffs(V))
-    inf = torch.tensor(float("inf"), dtype=xw.dtype, device=xw.device)
+    inf = torch.full((), float("inf"), dtype=xw.dtype, device=xw.device)
 
     def err_of(betas):
         R, t, bad = _pose_from_betas(betas, V, alphas, xw, w)

@@ -12,6 +12,10 @@ and never waits) and hands the arrays out (`result()`, which waits if it
 must). A mapping stage launches its program and queues the read; a later
 frame asks `done()` and takes the result only when it costs no wait.
 
+`upload` is the other direction: a host array as a tensor on a device,
+staged in pinned host memory and queued behind the stream's work on a card
+(a plain `.to(device)` of pageable memory waits for the stream to drain).
+
 `READS` counts the copies made from a CUDA device (a CPU tensor costs no
 read), so a caller can report host reads per frame.
 """
@@ -100,3 +104,18 @@ def fetch_async(*tensors: torch.Tensor) -> AsyncFetch:
     current stream and return at once. On CPU tensors the handle is done at
     once and holds the same arrays as `fetch`."""
     return AsyncFetch(tensors)
+
+
+def upload(a, device) -> torch.Tensor:
+    """A host array (or CPU tensor) as a tensor on `device`, same dtype. On
+    a card the bytes are staged in pinned host memory and the copy is
+    queued behind the work already on the stream; the caching host
+    allocator keeps the pinned buffer until the copy has landed."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a)).reshape(np.shape(a))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    if t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

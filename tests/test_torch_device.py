@@ -10,6 +10,8 @@ from orbslam_jpminipc_torch.config import SlamConfig
 from orbslam_jpminipc_torch.frontend.frame import build_frame
 from orbslam_jpminipc_torch.frontend.fused_track import FusedContext
 from orbslam_jpminipc_torch.frontend.tracking import Tracker
+from orbslam_jpminipc_torch.io.checkpoint import load_world, save_world
+from orbslam_jpminipc_torch.io.dataset import SyntheticSequence, TumDataset
 from orbslam_jpminipc_torch.geometry import sim3
 from orbslam_jpminipc_torch.map.device_map import DeviceMap, map_from_snapshot
 from orbslam_jpminipc_torch.map.keyframe_db import KeyFrameDatabase
@@ -73,7 +75,7 @@ def _dbow2_text(tmp):
 ENTRY_POINTS = {
     "Slam": (lambda **k: Slam(CFG, **k), lambda r: r.device),
     # the default constructor call with a vocabulary: loop closing on
-    "Slam[vocabulary]": (lambda **k: Slam(CFG, vocab=vocab_from_numpy(_flat_arrays(), device="cpu"),
+    "Slam[vocabulary]": (lambda **k: Slam(CFG, vocab=vocab_from_numpy(_flat_arrays(), **k),
                                           **k), lambda r: r.loop_closer.device),
     "LoopCloser": (lambda **k: LoopCloser(CFG, _state(), None, **k), lambda r: r.device),
     "sim3.identity": (lambda **k: sim3.identity(**k), lambda r: r[1].device),
@@ -90,6 +92,9 @@ ENTRY_POINTS = {
                                lambda r: r.words.device),
     "vocab_from_numpy[tree]": (lambda **k: vocab_from_numpy(_tree_arrays(), **k),
                                lambda r: r.node_desc.device),
+    # the renderer draws on its device
+    "SyntheticSequence": (lambda **k: SyntheticSequence(n_frames=2, trajectory="forward", **k),
+                          lambda r: r.render(1).device),
 }
 
 
@@ -102,7 +107,12 @@ def file_entry_points(tmp_path):
     tree = str(tmp_path / "tree.npz")
     save_vocabulary(vocab_from_numpy(_tree_arrays(), device="cpu"), tree)
     cpu_vocab = vocab_from_numpy(_flat_arrays(), device="cpu")
+    (tmp_path / "rgb.txt").write_text("0.0 a.png\n")
+    world = str(tmp_path / "w.npz")
+    save_world(world, _state())
     return {
+        "TumDataset": (lambda **k: TumDataset(str(tmp_path), **k), lambda r: r.device),
+        "load_world": (lambda **k: load_world(world, **k), lambda r: r.device),
         "load_vocabulary[flat]": (lambda **k: load_vocabulary(flat, **k), lambda r: r.device),
         "load_vocabulary[tree]": (lambda **k: load_vocabulary(tree, **k), lambda r: r.device),
         "load_dbow2_text": (lambda **k: load_dbow2_text(text, **k), lambda r: r.device),
@@ -111,8 +121,9 @@ def file_entry_points(tmp_path):
     }
 
 
-FILE_ENTRY_POINTS = ("load_vocabulary[flat]", "load_vocabulary[tree]", "load_dbow2_text",
-                     "load_dbow2_tree", "KeyFrameDatabase")
+FILE_ENTRY_POINTS = ("TumDataset", "load_world", "load_vocabulary[flat]",
+                     "load_vocabulary[tree]", "load_dbow2_text", "load_dbow2_tree",
+                     "KeyFrameDatabase")
 
 
 @pytest.mark.parametrize("name", FILE_ENTRY_POINTS)

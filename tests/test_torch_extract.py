@@ -150,3 +150,28 @@ def test_extract_small_frame():
     assert same_xy >= 0.99 and same_level >= 0.99, (same_xy, same_level)
     same_desc = np.all(f.desc.numpy() == np.asarray(j.desc), axis=1)[valid].mean()
     assert same_desc >= 0.99, same_desc
+
+
+def test_harris_score_map_within_tolerance():
+    img = _small_frame(2)
+    j = np.asarray(jax.jit(jfast.harris_score_map)(jnp.asarray(img)))
+    t = tfast.harris_score_map(torch.from_numpy(img)).numpy()
+    assert t.shape == j.shape
+    # float32 box sums in another order: relative to the map's scale
+    np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-5 * np.abs(j).max())
+
+
+def test_extract_with_harris_score():
+    img = _small_frame(3)
+    f = text.extract(torch.from_numpy(img), n_features=300, n_levels=4, use_harris_score=True)
+    g = text.extract(torch.from_numpy(img), n_features=300, n_levels=4)
+    j = jext.extract(jnp.asarray(img), n_features=300, n_levels=4, use_harris_score=True)
+    valid = np.asarray(j.valid)
+    np.testing.assert_array_equal(f.valid.numpy(), valid)
+    # the Harris score changes the response only, never the selection
+    np.testing.assert_array_equal(f.xy.numpy(), g.xy.numpy())
+    same_xy = np.all(f.xy.numpy() == np.asarray(j.xy), axis=1)[valid].mean()
+    assert same_xy >= 0.99, same_xy
+    jr = np.asarray(j.response)[valid]
+    np.testing.assert_allclose(f.response.numpy()[valid], jr, rtol=1e-4,
+                               atol=1e-5 * np.abs(jr).max())
