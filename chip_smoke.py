@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU: the WORKING tracking step, and
-the whole system (`Slam.process`) from the first frame.
+"""Drive the PyTorch port on one NVIDIA GPU: the WORKING tracking step, the
+whole system (`Slam.process`) from the first frame, the vocabulary trainer
+and the multi-device solvers.
 
     python3 chip_smoke.py
 
@@ -109,6 +110,37 @@ Phases (any failure raises, so the script exits non-zero):
                  frames 100-160 of the same sequence; it must be WORKING
                  again within 10 frames.
 
+ 11. vocab       the vocabulary trainer and the builders on the card. In a
+                 process of its own, `python -m orbslam_jpminipc_torch.vocab.train`
+                 at its defaults (flat, 8192 words; 60 frames of xyz and loop
+                 for each of 8 seeds rendered on the card, every 4th frame
+                 extracted: 240 frames); reports the descriptors, seconds by
+                 part (render, extract, k-medians) and the FAST launches,
+                 which must be one a training frame. `build_vocabulary` on
+                 the card against the CPU on 20,000 of those descriptors at
+                 1024 words and 3 iterations: equal bytes. The tree (`--tree
+                 --k 16 --depth 4 --seeds 2`), timed. Last `python -m
+                 orbslam_jpminipc_torch.run --dataset synthetic:xyz --frames
+                 60 --vocab <the flat file>`: at least 58 of 60 frames tracked
+ 12. multichip   the multi-device solvers of `parallel/`. The card's machine
+                 has one card, so this is the in-process mesh of one device
+                 and a world of one: the N-device evidence is the CPU tests'
+                 (tests/test_torch_parallel.py, test_torch_multihost.py).
+                 `dryrun_multichip(torch.cuda.device_count())` and its
+                 asserts; the loop phase's global-BA problem at (256, 16384,
+                 65536) through `sharded_bundle_adjust` (`cfg.gba_iterations`
+                 iterations) on the mesh of the process's cards: chi2 within
+                 0.5 % of the PCG solver's on the same problem, each
+                 keyframe's chi2 within 1 % of the single-device LM's and
+                 the PCG's, held cameras unmoved,
+                 no host synchronisation (CUDA sync debug mode);
+                 ms, kernels (torch.profiler), peak memory. The loop's
+                 essential graph through `sharded_optimize_essential_graph`
+                 against `optimize_essential_graph` (t within 2e-3, s 1e-4).
+                 A process that joins an NCCL world of one through
+                 `initialize_distributed` and holds the multihost problem
+                 within 5e-4 of the single-device BA. No FAST launch.
+
 `--phases a,b` runs only the named phases (after device and build) and
 prints no result line. `--compare TREE TREE ...` runs the throughput,
 system and reloc_async phases of several checkouts one after another, each tree's own code
@@ -189,6 +221,30 @@ FP32_OPS_PER_S = 67e12
 # select. Counted at the card's float32 rate.
 FAST_OPS_PER_PIXEL = 2 * 40 + 3 + 3 * 3 + 2 + 1 + 1 + 3 + 8 + 7
 EDGE = 19                 # the extractor's border (EDGE_THRESHOLD)
+# the vocab phase: vocab/train.py's defaults (flat, 8192 words, 60 frames of
+# xyz and loop for each of 8 seeds, every 4th frame), the card's k-medians
+# against the CPU's on a subset (equal bytes), run.py with the trained file
+VOCAB_DEFAULT_FRAMES, VOCAB_DEFAULT_SEEDS, VOCAB_DEFAULT_WORDS = 60, 8, 8192
+VOCAB_SUBSET = 20000
+VOCAB_RUN_FRAMES = 60
+VOCAB_RUN_TRACKED_MIN = 58
+# the multichip phase: the sharded global BA at full width against the PCG
+# solver and the single-device Schur LM (the same algorithm unsharded) on the
+# same problem: the total chi2 within 0.5 % of the PCG's (0.04-0.06 % apart on
+# the H100), and each keyframe's robust chi2 (the sum over its observations)
+# within 1 % of the LM's and the PCG's. Per keyframe is what tells a finished
+# solve: on the CPU the sharded solve is 3e-4 from the LM, the PCG 3.5e-3,
+# the sharded solve stopped after 10 of 20 iterations 2.1e-2, the start 79.
+# Poses and points are reported, not held: one camera is held, so the
+# monocular scale gauge is free, and solves at equal chi2 end apart along it
+# by as much as the start is from them, by an amount the card's atomics
+# change run to run. The sharded pose graph against the single-device one
+# (tests/test_sharded_pose_graph.py's bounds) and the NCCL world of one
+# against the single-device BA (tests/multihost_worker.py's bound)
+GBA_CHI2_REL = 5e-3
+GBA_KF_CHI2_REL = 1e-2
+EG_T_TOL, EG_S_TOL = 2e-3, 1e-4
+MULTIHOST_TOL = 5e-4
 
 
 def log(msg: str):
@@ -1708,6 +1764,359 @@ def phase_sequence(torch, fast_cuda, smi):
     return res
 
 
+# ---- the vocabulary trainer ---------------------------------------------------
+
+# run in a process of its own: `python -m orbslam_jpminipc_torch.vocab.train`'s
+# main with the given flags, the FAST kernel's launches counted from 0 over
+# it; the first `argv[3]` training descriptors are kept for the card/CPU check
+_VOCAB_TRAIN_RUN = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from orbslam_jpminipc_torch.ops import fast_cuda
+from orbslam_jpminipc_torch.vocab import train
+kept = {}
+collect = train.collect_descriptors
+
+def keep(*a, **k):
+    d = collect(*a, **k)
+    kept["n"] = len(d)
+    if int(sys.argv[3]):
+        np.save(sys.argv[2], d[:int(sys.argv[3])])
+    return d
+
+train.collect_descriptors = keep
+fast_cuda.build()
+fast_cuda.LAUNCHES = 0
+t0 = time.perf_counter()
+vocab = train.main(sys.argv[4:])
+torch.cuda.synchronize()
+print("RESULT " + json.dumps({
+    "fast_launches": fast_cuda.LAUNCHES, "wall_s": time.perf_counter() - t0,
+    "n_descriptors": kept["n"], "n_words": int(vocab.n_words),
+    "peak_mem_bytes": torch.cuda.max_memory_allocated()}))
+"""
+
+
+def _run_script(script, args, what, timeout, env=None):
+    """Run `script` in a process of its own; its RESULT line as a dict and
+    the other lines of its output."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", script, *args], cwd=REPO, capture_output=True,
+                         text=True, timeout=timeout, env=env)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
+    if out.returncode != 0 or not lines:
+        sys.stderr.write(out.stdout[-3000:] + out.stderr[-5000:])
+        raise AssertionError(f"{what} failed")
+    r = json.loads(lines[-1][len("RESULT "):])
+    r["process_wall_s"] = wall
+    return r, [ln for ln in out.stdout.splitlines() if not ln.startswith("RESULT ")]
+
+
+def _train_seconds(lines):
+    """The trainer's 'seconds: render R, extract E, k-medians K' line."""
+    line = next(ln for ln in lines if ln.startswith("seconds: "))
+    parts = dict(p.strip().rsplit(" ", 1) for p in line[len("seconds: "):].split(","))
+    return {k.replace("-", "") + "_s": float(v) for k, v in parts.items()}
+
+
+def phase_vocab(torch, fast_cuda, smi):
+    from orbslam_jpminipc_torch.vocab.tree import TreeVocabulary
+    from orbslam_jpminipc_torch.vocab.vocabulary import (
+        Vocabulary, build_vocabulary, load_vocabulary,
+    )
+
+    tmp = os.path.join(REPO, "build", "chip_smoke_vocab")   # .gitignore lists build/
+    os.makedirs(tmp, exist_ok=True)
+    flat, tree, subset = (os.path.join(tmp, n) for n in ("flat.npz", "tree.npz", "subset.npy"))
+    res = {"card": smi}
+    # -- the default training: flat, 8192 words, 60 frames x 8 seeds ----------
+    frames, seeds = VOCAB_DEFAULT_FRAMES, VOCAB_DEFAULT_SEEDS
+    n_train_frames = seeds * 2 * len(range(0, frames, max(1, frames // 15)))
+    r, lines = _run_script(_VOCAB_TRAIN_RUN, [REPO, subset, str(VOCAB_SUBSET), "--out", flat],
+                           "[vocab] python -m orbslam_jpminipc_torch.vocab.train", 900)
+    r.update(_train_seconds(lines), training_frames=n_train_frames)
+    res["flat"] = r
+    for ln in lines:
+        log(f"[vocab] train: {ln}")
+    log(f"[vocab] {smi}: the default training ({frames} frames x {seeds} seeds, xyz and loop, "
+        f"{n_train_frames} frames): {r['n_descriptors']} descriptors, {r['n_words']} words; "
+        f"render {r['render_s']:.2f} s, extract {r['extract_s']:.2f} s, k-medians "
+        f"{r['kmedians_s']:.2f} s; main {r['wall_s']:.1f} s, the process "
+        f"{r['process_wall_s']:.1f} s; FAST launches {r['fast_launches']}; peak device memory "
+        f"{r['peak_mem_bytes']} bytes")
+    if r["fast_launches"] != n_train_frames:
+        raise AssertionError(f"[vocab] {r['fast_launches']} FAST launches for {n_train_frames} "
+                             f"training frames: one a frame expected")
+    fv = load_vocabulary(flat, device="cpu")
+    if r["n_words"] != VOCAB_DEFAULT_WORDS or not isinstance(fv, Vocabulary) \
+            or fv.n_words != VOCAB_DEFAULT_WORDS:
+        raise AssertionError(f"[vocab] the trained file holds {r['n_words']} words")
+
+    # -- the card's k-medians against the CPU's on a subset: equal bytes -------
+    sub = np.load(subset)
+    t0 = time.perf_counter()
+    v_card = build_vocabulary(sub, n_words=1024, iters=3, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_cpu = build_vocabulary(sub, n_words=1024, iters=3, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    equal = (np.array_equal(v_card.words.cpu().numpy(), v_cpu.words.numpy())
+             and np.array_equal(v_card.idf.cpu().numpy(), v_cpu.idf.numpy()))
+    res["subset"] = {"descriptors": len(sub), "words": 1024, "iters": 3, "equal": equal,
+                     "card_s": card_s, "cpu_s": cpu_s}
+    log(f"[vocab] {smi}: build_vocabulary on {len(sub)} training descriptors, 1024 words, 3 "
+        f"iterations: card {card_s:.2f} s, CPU {cpu_s:.2f} s, words and idf equal bytes: {equal}")
+    if len(sub) != VOCAB_SUBSET or not equal:
+        raise AssertionError("[vocab] the card's vocabulary differs from the CPU's")
+
+    # -- the tree: k 16, depth 4, 2 seeds ------------------------------------
+    r, lines = _run_script(_VOCAB_TRAIN_RUN, [REPO, subset, "0", "--tree", "--k", "16",
+                                              "--depth", "4", "--seeds", "2", "--out", tree],
+                           "[vocab] python -m orbslam_jpminipc_torch.vocab.train --tree", 900)
+    r.update(_train_seconds(lines))
+    res["tree"] = r
+    tv = load_vocabulary(tree, device="cuda")
+    log(f"[vocab] {smi}: the tree (k 16, depth 4, 2 seeds): {r['n_descriptors']} descriptors, "
+        f"{r['n_words']} words; render {r['render_s']:.2f} s, extract {r['extract_s']:.2f} s, "
+        f"k-medians {r['kmedians_s']:.2f} s; main {r['wall_s']:.1f} s; FAST launches "
+        f"{r['fast_launches']}")
+    if not isinstance(tv, TreeVocabulary) or tv.n_words != r["n_words"] or tv.n_words < 1000:
+        raise AssertionError(f"[vocab] the tree file is not the tree built ({r['n_words']} words)")
+
+    # -- run.py with the trained flat vocabulary --------------------------------
+    kf_txt = os.path.join(tmp, "kf.txt")
+    r, lines = _run_script(_SEQUENCE_RUN, [REPO, "--dataset", "synthetic:xyz", "--frames",
+                                           str(VOCAB_RUN_FRAMES), "--seed", "0", "--vocab", flat,
+                                           "--out", kf_txt],
+                           "[vocab] run.py with the trained vocabulary", 600)
+    rows = r.pop("rows")
+    r["ms_per_frame"] = {k: _percentiles([x["ms"] for x in rows if x["kind"] == k])
+                         for k in ("init", "keyframe", "other", "lost")}
+    res["run"] = r
+    log(f"[vocab] {smi}: run.py --dataset synthetic:xyz --frames {VOCAB_RUN_FRAMES} --vocab "
+        f"<the trained file>: tracked {r['frames_tracked']}/{len(rows)}, keyframes "
+        f"{r['n_keyframes']}, points {r['n_points']}, loops closed {r['loops_closed']}; run.main "
+        f"{r['wall_s']:.1f} s; FAST launches {r['fast_launches']}")
+    if r["frames_tracked"] < VOCAB_RUN_TRACKED_MIN or r["fast_launches"] != VOCAB_RUN_FRAMES:
+        raise AssertionError(f"[vocab] tracked {r['frames_tracked']} < {VOCAB_RUN_TRACKED_MIN} "
+                             f"or {r['fast_launches']} FAST launches")
+    res["fast_launches"] = res["flat"]["fast_launches"]
+    return res
+
+
+# ---- the multi-device solvers -------------------------------------------------
+
+# run in a process of its own: a torch.distributed world of one process over
+# NCCL (initialize_distributed), the reference worker's problem
+# (tests/test_torch_multihost.py:build_problem) through lift_sharded_problem
+# and sharded_bundle_adjust, against the single-device solver
+_NCCL_RUN = r"""
+import importlib.util, json, socket, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+spec = importlib.util.spec_from_file_location("mh", sys.argv[2])
+mh = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mh)
+from orbslam_jpminipc_torch.parallel.multihost import (
+    global_mesh, initialize_distributed, lift_sharded_problem)
+from orbslam_jpminipc_torch.parallel.sharded_ba import shard_ba_problem, sharded_bundle_adjust
+from orbslam_jpminipc_torch.solvers.ba import BAProblem, bundle_adjust
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+initialize_distributed(f"localhost:{port}", 1, 0)
+dev = torch.device("cuda", torch.cuda.current_device())
+prob = BAProblem(**{k: torch.from_numpy(v).to(dev) for k, v in mh.build_problem().items()})
+mesh = global_mesh()
+sprob = lift_sharded_problem(shard_ba_problem(prob, 1), mesh)
+R, t, pts, chi2, _ = sharded_bundle_adjust(sprob, mesh, iterations=10)
+ref = bundle_adjust(prob, iterations=10)
+out = {"backend": torch.distributed.get_backend(), "world": torch.distributed.get_world_size(),
+       "chi2": float(chi2), "ref_chi2": float(ref.chi2),
+       "max_dR": float((R - ref.kf_R).abs().max()), "max_dt": float((t - ref.kf_t).abs().max())}
+torch.distributed.destroy_process_group()
+print("RESULT " + json.dumps(out))
+"""
+
+
+def _sync_stacks(torch, fn):
+    """Run `fn` under CUDA sync debug mode: the host synchronisations by
+    source line, and for each site the lines of the port's package on the
+    Python stack when it waited (empty where none of its code was there)."""
+    import traceback
+    import warnings
+
+    sites, stacks = {}, {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = f"{os.path.relpath(filename, REPO)}:{lineno}"
+        sites[site] = sites.get(site, 0) + 1
+        stacks[site] = [f"{os.path.relpath(f.filename, REPO)}:{f.lineno}"
+                        for f in traceback.extract_stack()
+                        if "orbslam_jpminipc_torch" in f.filename]
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites, stacks
+
+
+def phase_multichip(torch, fast_cuda, smi):
+    from orbslam_jpminipc_torch.parallel import (
+        DeviceMesh, mesh_devices, shard_ba_problem, shard_essential_graph,
+        sharded_bundle_adjust, sharded_optimize_essential_graph,
+    )
+    from orbslam_jpminipc_torch.parallel.dryrun import dryrun_multichip
+    from orbslam_jpminipc_torch.solvers import ba, essential_graph, gba
+    from orbslam_jpminipc_torch.solvers.reproj import CHI2_MONO, residuals
+    from orbslam_jpminipc_torch.utils.host import fetch
+    from orbslam_jpminipc_torch.vocab.vocabulary import load_vocabulary
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    launches0 = fast_cuda.LAUNCHES
+    n_dev = torch.cuda.device_count()
+    res = {"card": smi, "devices": n_dev}
+    res["dryrun"], dry_ms = timed(lambda: dryrun_multichip(n_dev))
+    log(f"[multichip] {smi}: dryrun_multichip({n_dev}) held its asserts in {dry_ms:.0f} ms: "
+        f"{json.dumps(res['dryrun'])}")
+
+    # -- global BA at (256, 16384, 65536): the loop phase's corrected map -------
+    slam, info, lf, meta = loop_system("cuda", load_vocabulary(VOCAB))
+    out = loop_run(slam, info, lf)
+    if out["closed_kf"] != meta["closed_kf"]:
+        raise AssertionError(f"[multichip] the constructed loop closed on {out['closed_kf']}")
+    prob, n_obs = slam.build_global_ba_problem()
+    shape = [prob.kf_R.shape[0], prob.points.shape[0], prob.obs_kf.shape[0]]
+    devices = mesh_devices(slam.device)
+    mesh = DeviceMesh(devices)
+    iters = slam.cfg.gba_iterations
+    sprob = shard_ba_problem(prob, len(devices))
+    solve = lambda: sharded_bundle_adjust(sprob, mesh, iterations=iters)
+    # first under CUDA sync debug mode (also the warm-up): where the host
+    # waits, with the lines of the port's code on the stack of each wait
+    sites, stacks = _sync_stacks(torch, solve)
+    torch.cuda.reset_peak_memory_stats()
+    (R, t, pts, chi2, _), ms = timed(solve)
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile_kernels(torch, solve)
+    pcg, pcg_ms = timed(lambda: gba.bundle_adjust_large(prob, iterations=iters,
+                                                        cg_iters=slam.cfg.gba_cg_iters))
+    lm, lm_ms = timed(lambda: ba.bundle_adjust(prob, iterations=iters))
+    chi0, chi_s, chi_p, chi_l, kf_R, kf_t, fixed, R0, t0, pv = fetch(
+        ba._robust_chi2(prob, prob.kf_R, prob.kf_t, prob.points), chi2, pcg.chi2, lm.chi2, R, t,
+        prob.kf_fixed, prob.kf_R, prob.kf_t, prob.point_valid)
+    # the sharded points (S, Pl, 3) back in the problem's order: contiguous blocks
+    pts_d = pts.reshape(-1, 3)[:pv.shape[0]]
+    pts = fetch(pts_d)[0]
+    free = ~fixed
+
+    def kf_chi2(R_, t_, p_):
+        """Each keyframe's robust chi2: `ba._robust_chi2`'s terms summed by keyframe."""
+        e, _ = residuals(R_[prob.obs_kf], t_[prob.obs_kf], p_[prob.obs_pt], prob.obs_uv, prob.K4)
+        c = torch.sum(e * e, dim=-1) * prob.obs_w
+        rho = torch.where(c <= CHI2_MONO, c, 2.0 * torch.sqrt(CHI2_MONO * c) - CHI2_MONO)
+        rho = torch.where(prob.obs_valid, rho, 0.0)
+        return fetch(torch.zeros_like(prob.kf_t[:, 0]).index_add_(0, prob.obs_kf, rho))[0]
+
+    seen = np.bincount(fetch(prob.obs_kf[prob.obs_valid])[0], minlength=len(fixed)) > 0
+    c_s = kf_chi2(R, t, pts_d)
+
+    def gaps(a, b, c_a):
+        (aR, at, ap), (bR, bt, bp) = a, fetch(b.kf_R, b.kf_t, b.points)
+        d = np.abs(ap - bp)[pv].max(1)
+        c_b = kf_chi2(b.kf_R, b.kf_t, b.points)
+        return {"kf_chi2_rel": float((np.abs(c_a - c_b)[seen] / c_b[seen]).max()),
+                "max_dR": float(np.abs(aR - bR)[free].max()),
+                "max_dt": float(np.abs(at - bt)[free].max()),
+                "point_median": float(np.median(d)), "point_max": float(d.max())}
+
+    vs_lm, vs_pcg = gaps((kf_R, kf_t, pts), lm, c_s), gaps((kf_R, kf_t, pts), pcg, c_s)
+    start_vs_pcg = gaps((R0, t0, fetch(prob.points)[0]), pcg,
+                        kf_chi2(prob.kf_R, prob.kf_t, prob.points))
+    res["global_ba"] = {
+        "shape": shape, "n_obs": int(n_obs), "shard_shape": list(sprob.points.shape[:2]) + [
+            sprob.obs_kf.shape[1]], "iterations": iters, "chi2_before": float(chi0),
+        "chi2_sharded": float(chi_s), "chi2_pcg": float(chi_p), "chi2_lm": float(chi_l),
+        "free_keyframes": int(free.sum()), "points": int(pv.sum()), "vs_lm": vs_lm,
+        "vs_pcg": vs_pcg, "start_vs_pcg": start_vs_pcg, "ms": ms, "pcg_ms": pcg_ms, "lm_ms": lm_ms,
+        "peak_mem_bytes": int(peak), "profile": prof, "sync_sites": sites,
+        "sync_stacks": stacks}
+    log(f"[multichip] {smi}: sharded_bundle_adjust on {len(devices)} device(s), {iters} "
+        f"iterations at {shape} ({n_obs} observations): {ms:.1f} ms, chi2 {float(chi0):.1f} -> "
+        f"{float(chi_s):.4f} (PCG on the same problem: {float(chi_p):.4f} in {pcg_ms:.1f} ms; "
+        f"single-device LM: {float(chi_l):.4f} in {lm_ms:.1f} ms); against the LM "
+        f"{json.dumps(vs_lm)}, against the PCG {json.dumps(vs_pcg)} (the start "
+        f"{json.dumps(start_vs_pcg)}); "
+        f"{prof['kernels']} kernels, {prof['device_ms']:.1f} ms of kernel time; peak device "
+        f"memory {peak} bytes; host synchronisations by source line {json.dumps(sites)}, "
+        f"the port's lines on their stacks {json.dumps(stacks)}")
+    if any(stacks.values()):
+        raise AssertionError(f"[multichip] the sharded BA waits for the host: {stacks}")
+    if not abs(chi_s - chi_p) <= GBA_CHI2_REL * chi_p or not chi_s < chi0:
+        raise AssertionError(f"[multichip] sharded chi2 {chi_s}, PCG {chi_p}, before {chi0}")
+    if not max(vs_lm["kf_chi2_rel"], vs_pcg["kf_chi2_rel"]) <= GBA_KF_CHI2_REL:
+        raise AssertionError(f"[multichip] a keyframe's chi2 is off: against the LM {vs_lm}, "
+                             f"against the PCG {vs_pcg}")
+    if not (np.array_equal(kf_R[fixed], R0[fixed]) and np.array_equal(kf_t[fixed], t0[fixed])
+            and np.isfinite(kf_R).all() and np.isfinite(kf_t).all() and np.isfinite(pts).all()):
+        raise AssertionError("[multichip] the sharded BA moved a held camera or is not finite")
+
+    # -- the essential graph, edge-sharded, against the single-device LM -------
+    eg = out["eg_problem"]
+    seg = shard_essential_graph(eg, len(devices))
+    sharded = lambda: sharded_optimize_essential_graph(seg, mesh, iterations=20)
+    sharded()
+    got, eg_ms = timed(sharded)
+    ref, ref_ms = timed(lambda: essential_graph.optimize_essential_graph(eg, iterations=20))
+    gs, gt, rs, rt, gchi, rchi = fetch(got.s, got.t, ref.s, ref.t, got.chi2, ref.chi2)
+    res["essential_graph"] = {"ms": eg_ms, "single_device_ms": ref_ms, "chi2": float(gchi),
+                              "ref_chi2": float(rchi), "max_dt": float(np.abs(gt - rt).max()),
+                              "max_ds": float(np.abs(gs - rs).max()),
+                              "edge_slots": list(seg.e_i.shape)}
+    log(f"[multichip] {smi}: sharded_optimize_essential_graph (K = {eg.s.shape[0]}, edge slots "
+        f"{list(seg.e_i.shape)}): {eg_ms:.1f} ms, chi2 {float(gchi):.8f}; single-device "
+        f"{ref_ms:.1f} ms, chi2 {float(rchi):.8f}; max |dt| {res['essential_graph']['max_dt']:.3g}, "
+        f"max |ds| {res['essential_graph']['max_ds']:.3g}")
+    if not (res["essential_graph"]["max_dt"] <= EG_T_TOL
+            and res["essential_graph"]["max_ds"] <= EG_S_TOL):
+        raise AssertionError(f"[multichip] the sharded pose graph is off: {res['essential_graph']}")
+
+    # -- a torch.distributed world of one over NCCL -----------------------------
+    # one host: NCCL's bootstrap on the loopback interface, which its
+    # default interface choice leaves out
+    r, _ = _run_script(_NCCL_RUN, [REPO, os.path.join(REPO, "tests", "test_torch_multihost.py")],
+                       "[multichip] the NCCL world of one", 300,
+                       env=dict(os.environ, NCCL_SOCKET_IFNAME=os.environ.get(
+                           "NCCL_SOCKET_IFNAME", "lo")))
+    res["nccl"] = r
+    log(f"[multichip] {smi}: initialize_distributed -> {r['backend']} world of {r['world']}: "
+        f"sharded chi2 {r['chi2']:.4f} (single device {r['ref_chi2']:.4f}), max |dR| "
+        f"{r['max_dR']:.3g}, max |dt| {r['max_dt']:.3g}; the process {r['process_wall_s']:.1f} s")
+    if r["backend"] != "nccl" or r["world"] != 1 or max(r["max_dR"], r["max_dt"]) > MULTIHOST_TOL:
+        raise AssertionError(f"[multichip] the NCCL world is off: {r}")
+    if fast_cuda.LAUNCHES != launches0:
+        raise AssertionError("[multichip] the FAST kernel ran: it is not on this phase's path")
+    res["fast_launches"] = 0
+    return res
+
+
 # what `--compare` runs in each tree: that tree's own phases, quietly
 _COMPARE_RUN = r"""
 import json, sys
@@ -1787,6 +2196,8 @@ def main() -> int:
         "reloc_async": lambda: phase_reloc_async(torch, fast_cuda, smi),
         "loop": lambda: phase_loop(torch, fast_cuda, smi),
         "sequence": lambda: phase_sequence(torch, fast_cuda, smi),
+        "vocab": lambda: phase_vocab(torch, fast_cuda, smi),
+        "multichip": lambda: phase_multichip(torch, fast_cuda, smi),
     }
     # `--phases a,b` runs only those (after device and build), for work on
     # one phase; such a run prints no result line
@@ -1824,6 +2235,9 @@ def main() -> int:
         "launches_async_run": report["reloc_async"]["run_a"]["fast_launches"],
         "launches_loop_phase": report["loop"]["fast_launches"],
         "launches_sequence_phase": report["sequence"]["fast_launches"],
+        # the default vocabulary training: one launch a training frame
+        "launches_vocab_phase": report["vocab"]["fast_launches"],
+        "launches_multichip_phase": report["multichip"]["fast_launches"],
         "max_abs_err": report["kernel"]["max_abs_err"],
         # per frame: one launch over the 8 pyramid levels, the select included
         "ms": k["ms"], "plain_ms": k["plain_ms"],

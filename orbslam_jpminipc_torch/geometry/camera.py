@@ -21,6 +21,24 @@ def project(xc: torch.Tensor, K4: torch.Tensor) -> torch.Tensor:
     return torch.stack([u, v], dim=-1)
 
 
+def unproject(uv: torch.Tensor, K4: torch.Tensor) -> torch.Tensor:
+    """Pixels (..., 2) -> normalized camera rays (..., 3) with z=1."""
+    x = (uv[..., 0] - K4[2]) / K4[0]
+    y = (uv[..., 1] - K4[3]) / K4[1]
+    return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
+def distort_normalized(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """Apply radial-tangential distortion to normalized coords (..., 2)."""
+    k1, k2, p1, p2 = dist[0], dist[1], dist[2], dist[3]
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + k1 * r2 + k2 * r2 * r2
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
 def undistort_points(uv: torch.Tensor, K4: torch.Tensor, dist: torch.Tensor,
                      iters: int = 8) -> torch.Tensor:
     """Undistort pixel keypoints (cv::undistortPoints equivalent): a fixed
@@ -38,6 +56,13 @@ def undistort_points(uv: torch.Tensor, K4: torch.Tensor, dist: torch.Tensor,
         dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
         x, y = (xd - dx) * icdist, (yd - dy) * icdist
     return torch.stack([x * fx + cx, y * fy + cy], dim=-1)
+
+
+def project_distorted(xc: torch.Tensor, K4: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """Project camera-frame points (..., 3) applying the full distortion model."""
+    inv_z = _safe_inv_z(xc[..., 2])
+    xyd = distort_normalized(torch.stack([xc[..., 0] * inv_z, xc[..., 1] * inv_z], dim=-1), dist)
+    return torch.stack([xyd[..., 0] * K4[0] + K4[2], xyd[..., 1] * K4[1] + K4[3]], dim=-1)
 
 
 def in_image(uv: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """SO3/SE3 operations (counterpart of orbslam_jpminipc_tpu/geometry/se3.py):
-`hat`, `vee`, `exp_so3`, `log_so3`, `exp_se3`, `compose`,
-`inverse`, `transform`, `retract`, `orthonormalize`, and the quaternion
-helpers `quat_from_mat`, `mat_from_quat`, `quat_mul`.
+`hat`, `vee`, `exp_so3`, `log_so3`, `exp_se3`, `log_se3`, `compose`,
+`inverse`, `transform`, `retract`, `camera_center`, `orthonormalize`, the
+quaternion helpers `quat_from_mat`, `mat_from_quat`, `quat_mul`, and the
+7-vector storage format `pose7_from_Rt`, `Rt_from_pose7`.
 
 Conventions as in the reference package: rotations are 3x3 matrices
 (world->camera as Tcw), rigid transforms are (R, t) pairs acting by
@@ -97,6 +98,14 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
     return (theta / n)[..., None] * xyz
 
 
+def log_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`exp_se3`: ``(R, t)`` -> 6-vector ``[omega, upsilon]``.
+    The 3x3 solve is `solve_ex`: no check of its result on the host."""
+    w = log_so3(R)
+    v = torch.linalg.solve_ex(_so3_left_jacobian(w), t[..., None])[0][..., 0]
+    return torch.cat([w, v], dim=-1)
+
+
 def compose(Ra, ta, Rb, tb) -> tuple[torch.Tensor, torch.Tensor]:
     """(Ra,ta) * (Rb,tb): apply b first, then a."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
@@ -116,6 +125,11 @@ def retract(R, t, xi) -> tuple[torch.Tensor, torch.Tensor]:
     """Left-multiplicative update ``exp(xi) * (R, t)`` (g2o oplus)."""
     dR, dt = exp_se3(xi)
     return compose(dR, dt, R, t)
+
+
+def camera_center(R, t) -> torch.Tensor:
+    """Camera center in world coords for a world->camera transform: -R^T t."""
+    return -(R.transpose(-1, -2) @ t[..., None])[..., 0]
 
 
 def quat_from_mat(R: torch.Tensor) -> torch.Tensor:
@@ -167,6 +181,15 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def pose7_from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Pack (R, t) into a 7-vector [qw,qx,qy,qz, tx,ty,tz] (storage format)."""
+    return torch.cat([quat_from_mat(R), t], dim=-1)
+
+
+def Rt_from_pose7(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return mat_from_quat(p[..., :4]), p[..., 4:7]
 
 
 def orthonormalize(R: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,8 @@ the conversion to libpng's `png_set_rgb_to_gray(0.299, 0.587)`, whose
 for blue) and whose sum is truncated, `(9797 R + 19234 G + 3737 B) >> 15`
 (measured equal to cv2 5.0 on random images; cvtColor's rounded 14-bit
 coefficients differ in the last bit). `write_gray` writes a greyscale file
-with filter 0 on every row.
+and `write_bgr` a colour one from a BGR array (cv2.imwrite's order), with
+filter 0 on every row.
 
 The Average and Paeth filters depend on the reconstructed byte to the left.
 The rows are undone by `native/png_unfilter.cpp`, built with g++ at first
@@ -139,18 +140,33 @@ def read_gray(path: str) -> np.ndarray:
     return ((9797 * rgb[..., 0] + 19234 * rgb[..., 1] + 3737 * rgb[..., 2]) >> 15).astype(np.uint8)
 
 
-def write_gray(path: str, img: np.ndarray):
-    """Write a (H, W) uint8 image as an 8-bit greyscale PNG (filter 0)."""
-    img = np.ascontiguousarray(img, np.uint8)
-    if img.ndim != 2:
-        raise ValueError(f"write_gray takes a (H, W) image, got {img.shape}")
-    h, w = img.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1).tobytes()
+def _write(path: str, rows: np.ndarray, color_type: int):
+    """Write (H, W * channels) uint8 rows as an 8-bit PNG, filter 0."""
+    h, rowbytes = rows.shape
+    w = rowbytes // (3 if color_type == 2 else 1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
 
     def chunk(typ: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + typ + body
                 + struct.pack(">I", zlib.crc32(typ + body) & 0xFFFFFFFF))
 
     with open(path, "wb") as f:
-        f.write(_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+        f.write(_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_gray(path: str, img: np.ndarray):
+    """Write a (H, W) uint8 image as an 8-bit greyscale PNG (filter 0)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 2:
+        raise ValueError(f"write_gray takes a (H, W) image, got {img.shape}")
+    _write(path, img, 0)
+
+
+def write_bgr(path: str, img: np.ndarray):
+    """Write a (H, W, 3) uint8 BGR image (cv2's channel order, as
+    cv2.imwrite takes it) as an 8-bit RGB PNG (filter 0)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"write_bgr takes a (H, W, 3) image, got {img.shape}")
+    _write(path, np.ascontiguousarray(img[..., ::-1]).reshape(img.shape[0], -1), 2)

@@ -144,6 +144,12 @@ def gather_patches_multi(imgs: torch.Tensor, xy: torch.Tensor, radius: int) -> t
     return padded[:, ys, xs].permute(1, 0, 2, 3)     # (N, C, size, size)
 
 
+def gather_patches(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Tensor:
+    """Patches around rounded keypoint coords of one image: (H, W), (N, 2)
+    xy -> (N, 2r+1, 2r+1) (`gather_patches_multi` of a single channel)."""
+    return gather_patches_multi(img[None], xy, radius)[:, 0]
+
+
 def ic_angle_from_patches(patches: torch.Tensor) -> torch.Tensor:
     """IC angle in degrees [0, 360) from (N, 31, 31) patches (moments m01,
     m10 over the circular patch of radius 15)."""
@@ -176,3 +182,17 @@ def descriptors_from_patches(patches: torch.Tensor, angle_deg: torch.Tensor) -> 
     vals = torch.gather(patches.reshape(n, -1), 1, flat).reshape(n, 256, 2)
     bits = (vals[..., 0] < vals[..., 1]).to(torch.int32).reshape(n, 32, 8)
     return torch.sum(bits * k.pack, dim=-1).to(torch.uint8)
+
+
+def ic_angle(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation, degrees in [0, 360) (IC_Angle,
+    src/ORBextractor.cc:124-151): moments over the circular patch of radius
+    15 on the (unblurred) level image."""
+    return ic_angle_from_patches(gather_patches(img, xy, HALF_PATCH_SIZE))
+
+
+def descriptors(img_blurred: torch.Tensor, xy: torch.Tensor,
+                angle_deg: torch.Tensor) -> torch.Tensor:
+    """Rotated-BRIEF descriptors of one blurred level: (N, 32) uint8 (see
+    descriptors_from_patches)."""
+    return descriptors_from_patches(gather_patches(img_blurred, xy, PATCH_RADIUS), angle_deg)

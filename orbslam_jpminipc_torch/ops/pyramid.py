@@ -40,6 +40,12 @@ def level_sizes(h: int, w: int, n_levels: int, scale_factor: float) -> list[tupl
     return sizes
 
 
+def scale_factors(n_levels: int, scale_factor: float):
+    """Per-level scale and sigma2 tables (Frame.cc:95-107 equivalents)."""
+    scales = np.array([scale_factor ** i for i in range(n_levels)], np.float32)
+    return scales, scales ** 2
+
+
 @functools.lru_cache(maxsize=64)
 def _taps(n_in: int, n_out: int, device: str):
     """Two-tap form of the reference's (n_in, n_out) linear weight matrix:

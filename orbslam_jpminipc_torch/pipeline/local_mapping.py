@@ -214,6 +214,11 @@ class LocalMapper:
         xc = self.map.mp_xyz[pts] @ self.map.kf_R[kf].T + self.map.kf_t[kf]
         return float(np.median(xc[:, 2]))
 
+    def create_new_points(self, kf: int):
+        """Synchronous triangulation (dispatch + merge back to back)."""
+        self.triangulate_dispatch(kf)
+        self.triangulate_merge(kf)
+
     def triangulate_dispatch(self, kf: int, max_neighbors: int = TRI_NEIGHBORS):
         """Device half of CreateNewMapPoints: neighbor selection on the
         host, the epipolar search + DLT + gates as one program."""
@@ -332,6 +337,11 @@ class LocalMapper:
     # ------------------------------------------------------------------
     # duplicate fusion (SearchInNeighbors :395-472)
     # ------------------------------------------------------------------
+
+    def fuse_neighbors(self, kf: int, n_neighbors: int = 20):
+        """Synchronous fusion (dispatch + merge back to back)."""
+        self.fuse_dispatch(kf, n_neighbors)
+        self.fuse_merge(kf)
 
     def fuse_dispatch(self, kf: int, n_neighbors: int = 20):
         """Device half of SearchInNeighbors: BOTH projection directions (the
@@ -569,6 +579,13 @@ class LocalMapper:
         # (obs_feat, obs_srckf) index the mirror: the kernel gathers the
         # observation pixels and weights on the device
         return prob, all_kfs, pts, obs_src, (obs_feat, obs_srckf)
+
+    def local_ba(self, kf: int):
+        """Synchronous local BA (both stages back to back)."""
+        self.ba_dispatch(kf)
+        self.ba_merge(kf)
+        self.ba2_dispatch(kf)
+        self.ba2_merge(kf)
 
     def ba_dispatch(self, kf: int):
         """Launch LM stage 1 (5 iterations, Optimizer.cc:450)."""

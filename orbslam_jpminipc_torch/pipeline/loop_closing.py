@@ -12,9 +12,11 @@ The reference's stop-the-mapper handshake (RequestStop :420-427)
 disappears: stages run deterministically in sequence. The graph
 bookkeeping is host numpy; the device programs are `mutual_match`,
 `search_by_projection`, `fuse_search`, `solve_sim3`, `optimize_sim3` and
-`optimize_essential_graph`. Each takes its operands through the map
-mirror's `put` (pinned, queued uploads) and gives its results back in one
-batched read.
+`optimize_essential_graph` (with more than one device to shard over and
+`cfg.distributed_gba`, the edge-sharded `sharded_optimize_essential_graph`
+of parallel/, as the reference on a multi-device mesh). Each takes its
+operands through the map mirror's `put` (pinned, queued uploads) and gives
+its results back in one batched read.
 """
 from __future__ import annotations
 
@@ -26,6 +28,10 @@ from ..frontend.frame import predict_scale_level
 from ..map.device_map import DeviceMap
 from ..map.map_state import MapState
 from ..ops import matching
+from ..parallel import mesh as pmesh
+from ..parallel.sharded_pose_graph import (
+    shard_essential_graph, sharded_optimize_essential_graph,
+)
 from ..solvers import essential_graph, sim3_opt, sim3solver
 from ..utils.device import resolve_device
 from ..utils.host import fetch
@@ -596,10 +602,15 @@ class LoopCloser:
             e_t=put(np.concatenate([np.stack(e_t), np.zeros((pad, 3))]).astype(np.float32)),
             e_valid=put(np.concatenate([np.ones(E, bool), np.zeros(pad, bool)])),
         )
-        # one device whatever cfg.distributed_gba says: the edge-sharded
-        # solver of the reference belongs to the multi-device slice
+        devices = pmesh.mesh_devices(self.device)
         with get_tracer().stage("loop_essential_graph"):
-            res = essential_graph.optimize_essential_graph(prob, iterations=20)
+            if len(devices) > 1 and cfg.distributed_gba:
+                # the edge-sharded pose graph over the process's devices
+                res = sharded_optimize_essential_graph(
+                    shard_essential_graph(prob, len(devices)),
+                    pmesh.DeviceMesh(devices), iterations=20)
+            else:
+                res = essential_graph.optimize_essential_graph(prob, iterations=20)
             s_new, R_new, t_new, chi2 = fetch(res.s, res.R, res.t, res.chi2)
         get_tracer().log("essential_graph_done", kf=int(kf), chi2=float(chi2), edges=E)
 

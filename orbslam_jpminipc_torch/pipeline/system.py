@@ -17,9 +17,12 @@ essential graph, optionally followed by global bundle adjustment
 (main.cc:226-245, TUM order) comes from `keyframe_trajectory()`.
 
 Refused instead of being run some other way: `pipelined_tracking` (a
-workaround for the reference's device link). The essential graph and
-global BA run on the system's one device whatever `cfg.distributed_gba`
-says: the reference's sharded solvers are not part of this package yet.
+workaround for the reference's device link). With `cfg.distributed_gba`
+(the default) and more than one device to shard over
+(`parallel.mesh.mesh_devices`: every card of the process), global BA and
+the essential graph take the sharded solvers of `parallel/`, as the
+reference does on a multi-device mesh; with one device, the single-device
+solvers.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ from ..frontend.tracking import Tracker, TrackState
 from ..map.device_map import DeviceMap
 from ..map.keyframe_db import KeyFrameDatabase
 from ..map.map_state import MapState
+from ..parallel import mesh as pmesh
+from ..parallel.sharded_ba import shard_ba_problem, sharded_bundle_adjust
 from ..solvers import ba, gba
 from ..utils.device import resolve_device
 from ..utils.host import fetch
@@ -482,18 +487,30 @@ class Slam:
         ), n
 
     def global_ba(self, iterations: int | None = None):
-        """Run global BA (implicit-Schur PCG on the system's device) and
-        write back poses and points. The reference's global variant does
-        not erase outlier observations (only local BA does,
-        Optimizer.cc:453-470). Returns the result, or None when the map
-        holds fewer than 20 observations."""
+        """Run global BA and write back poses and points. With more than one
+        device to shard over and `cfg.distributed_gba`, the map-partitioned
+        solver runs (points and observations sharded, the reduced camera
+        system summed over the devices, parallel/sharded_ba.py); otherwise
+        the implicit-Schur PCG on the system's device. The reference's
+        global variant does not erase outlier observations (only local BA
+        does, Optimizer.cc:453-470). Returns the result, or None when the
+        map holds fewer than 20 observations."""
         st, cfg = self.map, self.cfg
         prob, n_obs = self.build_global_ba_problem()
         if n_obs < 20:
             return None
         iters = cfg.gba_iterations if iterations is None else iterations
-        res = gba.bundle_adjust_large(prob, iterations=iters, cg_iters=cfg.gba_cg_iters)
-        kf_R, kf_t, points, fixed = fetch(res.kf_R, res.kf_t, res.points, prob.kf_fixed)  # one read
+        devices = pmesh.mesh_devices(self.device)
+        if len(devices) > 1 and cfg.distributed_gba:
+            sprob = shard_ba_problem(prob, len(devices))
+            R, t, pts_sh, chi2, out = sharded_bundle_adjust(
+                sprob, pmesh.DeviceMesh(devices), iterations=iters)
+            res = ba.BAResult(kf_R=R, kf_t=t, points=pts_sh.reshape(-1, 3)[: st.max_mp],
+                              chi2=chi2, obs_outlier=out)
+        else:
+            res = gba.bundle_adjust_large(prob, iterations=iters, cg_iters=cfg.gba_cg_iters)
+        kf_R, kf_t, points, fixed = fetch(res.kf_R, res.kf_t, res.points,
+                                          prob.kf_fixed.to(res.kf_R.device))  # one read
         live = st.kf_valid & ~fixed
         st.kf_R[live] = kf_R[live]
         st.kf_t[live] = kf_t[live]

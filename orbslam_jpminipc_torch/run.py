@@ -6,7 +6,7 @@ The reference's `rosrun ORB_SLAM ORB_SLAM <vocabulary> <settings.yaml>`
 
     python -m orbslam_jpminipc_torch.run --dataset synthetic:xyz --frames 300 \\
         [--settings settings.yaml] [--vocab vocab.npz] [--out KeyFrameTrajectory.txt] \\
-        [--save-world w.npz] [--load-world w.npz] [--device cuda|cpu]
+        [--save-world w.npz] [--load-world w.npz] [--viz DIR] [--device cuda|cpu]
 
 Datasets: `synthetic[:trajectory]` (the rendered room, rendered on the
 device; the ground-truth ATE is printed) or `tum:<dir>` (a TUM RGB-D
@@ -25,13 +25,33 @@ import time
 import numpy as np
 
 
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+
+
+def default_vocabulary(device):
+    """The vocabulary a run without `--vocab` uses, in the reference's order:
+    the ORBvoc-style tree (64k words, `vocab/train.py --tree`), the analogue
+    of the reference's shipped ORBvoc.txt (main.cc:101); else the flat
+    trained vocabulary; else an ad-hoc one built from random descriptors."""
+    from .vocab.vocabulary import build_vocabulary, load_vocabulary
+
+    for name in ("vocab_tree64k.npz", "vocab_synthetic.npz"):
+        path = os.path.join(DATA_DIR, name)
+        if os.path.exists(path):
+            return load_vocabulary(path, device=device)
+    rng = np.random.default_rng(0)
+    return build_vocabulary(rng.integers(0, 256, (20000, 32)).astype(np.uint8),
+                            n_words=1024, iters=3, device=device)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="monocular ORB-SLAM on PyTorch")
     ap.add_argument("--dataset", default="synthetic",
                     help="synthetic[:traj] | tum:<dir>")
     ap.add_argument("--settings", default=None, help="settings.yaml (reference layout)")
     ap.add_argument("--vocab", default=None,
-                    help="vocabulary .npz (default: data/vocab_tree64k.npz)")
+                    help="vocabulary .npz (default: data/vocab_tree64k.npz, else "
+                         "data/vocab_synthetic.npz, else an ad-hoc vocabulary)")
     ap.add_argument("--frames", type=int, default=120)
     ap.add_argument("--n-features", type=int, default=1000)
     ap.add_argument("--out", default="KeyFrameTrajectory.txt")
@@ -48,13 +68,17 @@ def main(argv=None):
                     help="accepted for the reference's command lines and ignored: "
                          "eager PyTorch has no programs to compile ahead")
     ap.add_argument("--viz", default=None, metavar="DIR",
-                    help="live visualization (not available in this package yet)")
+                    help="live visualization: write the tracked-frame debug "
+                         "image and a top-down map view to DIR every frame "
+                         "(the reference refreshes its Frame/Map publishers "
+                         "at camera fps, src/main.cc:210-218)")
     ap.add_argument("--device", default=None,
                     help="device to run on (default: the current CUDA device)")
     args = ap.parse_args(argv)
+    viz_dir = None
     if args.viz:
-        ap.error("--viz is not available in this package yet: the debug drawing "
-                 "(io/viz.py) is still to be ported (ROADMAP.md, queue 1)")
+        os.makedirs(args.viz, exist_ok=True)
+        viz_dir = args.viz
 
     from .config import SlamConfig
     from .io.dataset import SyntheticSequence, TumDataset
@@ -88,21 +112,24 @@ def main(argv=None):
     else:
         ap.error(f"unknown dataset {args.dataset}")
 
-    if args.vocab:
-        vocab = load_vocabulary(args.vocab, device=device)
-    else:
-        tree_voc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                                "vocab_tree64k.npz")
-        if not os.path.exists(tree_voc):
-            # the reference builds an ad-hoc vocabulary here; this package
-            # has no vocabulary builder yet
-            raise FileNotFoundError(
-                f"{tree_voc} is missing and this package cannot build a vocabulary "
-                f"(build_vocabulary is not ported yet): pass --vocab")
-        vocab = load_vocabulary(tree_voc, device=device)
+    vocab = load_vocabulary(args.vocab, device=device) if args.vocab else default_vocabulary(device)
 
     slam = Slam(cfg, vocab=vocab, enable_loop_closing=not args.no_loop_closing,
                 device=device)
+
+    def refresh_viz(img, frame, state):
+        """FramePublisher/MapPublisher refresh (src/main.cc:210-218). The
+        system tracks each frame to its end, so `frame` is the image's own."""
+        if viz_dir is None:
+            return
+        from .io.png import write_bgr
+        from .io.viz import draw_frame, draw_map_topdown
+
+        if frame is not None:
+            host = img.cpu().numpy() if hasattr(img, "cpu") else np.asarray(img)
+            write_bgr(os.path.join(viz_dir, "frame.png"),
+                      draw_frame(host, frame, state, n_kf=slam.n_keyframes, n_mp=slam.n_points))
+        write_bgr(os.path.join(viz_dir, "map.png"), draw_map_topdown(slam.map))
 
     if args.load_world:
         from .io.checkpoint import load_slam
@@ -124,6 +151,7 @@ def main(argv=None):
         while i < n:
             img, ts, _ = seq.get(i)
             state, frame = slam.process(img, ts)
+            refresh_viz(img, frame, state)
             done += 1
             if done % 20 == 0:
                 print(f"[{i}/{n}] {state.name} kfs={slam.n_keyframes} "
@@ -141,6 +169,7 @@ def main(argv=None):
         for i in range(n):
             img, ts, _ = seq.get(i)
             state, frame = slam.process(img, ts)
+            refresh_viz(img, frame, state)
             if i % 20 == 0:
                 print(
                     f"[{i}/{n}] {state.name} kfs={slam.n_keyframes} "

@@ -82,6 +82,26 @@ def edge_jacobians(args, fix_scale: bool = False):
     return J[..., :7], J[..., 7:]
 
 
+def edge_system(args, e_i, e_j, w, wi, wj, K: int, fix_scale: bool = False):
+    """The edges' part of the normal equations at the vertices as they
+    stand: (H (K, K, 7, 7), b (K, 7)). `w` weighs each edge (0 for padding),
+    `wi`/`wj` also zero the columns of a fixed vertex."""
+    e = edge_residuals(args, fix_scale)             # (E, 7)
+    Ji, Jj = edge_jacobians(args, fix_scale)        # (E, 7, 7) each
+    Ji = Ji * wi[:, None, None]
+    Jj = Jj * wj[:, None, None]
+    ew = e * w[:, None]
+    H = torch.zeros((K, K, 7, 7), dtype=e.dtype, device=e.device)
+    H.index_put_((e_i, e_i), torch.einsum("eri,erj->eij", Ji, Ji), accumulate=True)
+    H.index_put_((e_j, e_j), torch.einsum("eri,erj->eij", Jj, Jj), accumulate=True)
+    H.index_put_((e_i, e_j), torch.einsum("eri,erj->eij", Ji, Jj), accumulate=True)
+    H.index_put_((e_j, e_i), torch.einsum("eri,erj->eij", Jj, Ji), accumulate=True)
+    b = torch.zeros((K, 7), dtype=e.dtype, device=e.device)
+    b.index_add_(0, e_i, torch.einsum("eri,er->ei", Ji, ew))
+    b.index_add_(0, e_j, torch.einsum("eri,er->ei", Jj, ew))
+    return H, b
+
+
 def optimize_essential_graph(
     prob: EssentialGraphProblem,
     iterations: int = 20,
@@ -114,22 +134,7 @@ def optimize_essential_graph(
     chi = total_chi2(s, R, t)
     lam = torch.full_like(chi, lam0)
     for _ in range(iterations):
-        args = gather(s, R, t)
-        e = edge_residuals(args, fix_scale)             # (E, 7)
-        Ji, Jj = edge_jacobians(args, fix_scale)        # (E, 7, 7) each
-        Ji = Ji * wi[:, None, None]
-        Jj = Jj * wj[:, None, None]
-        ew = e * w[:, None]
-
-        H = torch.zeros((K, K, 7, 7), dtype=dt, device=dev)
-        H.index_put_((e_i, e_i), torch.einsum("eri,erj->eij", Ji, Ji), accumulate=True)
-        H.index_put_((e_j, e_j), torch.einsum("eri,erj->eij", Jj, Jj), accumulate=True)
-        H.index_put_((e_i, e_j), torch.einsum("eri,erj->eij", Ji, Jj), accumulate=True)
-        H.index_put_((e_j, e_i), torch.einsum("eri,erj->eij", Jj, Ji), accumulate=True)
-        b = torch.zeros((K, 7), dtype=dt, device=dev)
-        b.index_add_(0, e_i, torch.einsum("eri,er->ei", Ji, ew))
-        b.index_add_(0, e_j, torch.einsum("eri,er->ei", Jj, ew))
-
+        H, b = edge_system(gather(s, R, t), e_i, e_j, w, wi, wj, K, fix_scale)
         H = torch.where(inert_block, 0.0, H)
         H[diag, diag] += torch.where(inert, 1.0, lam)[:, None, None] * eye7
         b = torch.where(inert[:, None], 0.0, b)

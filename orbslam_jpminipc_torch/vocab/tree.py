@@ -8,7 +8,8 @@ gather the k children of each current node, compute the (N, k) pairwise
 Hamming distances, take the minimum, advance. The node tables stay on the
 vocabulary's device; a transform uploads only the descriptors.
 
-Word ids are leaf indices; tf-idf weights ride per word (TF_IDF,
+`build_tree_vocabulary` trains the tree (DBoW2's `create`) from a
+descriptor set. Word ids are leaf indices; tf-idf weights ride per word (TF_IDF,
 TemplatedVocabulary.h:107) and stay on the host, where the sparse BoW
 vector is made.
 
@@ -112,6 +113,87 @@ def tree_from_arrays(child_idx, node_desc, node_word, word_weight, depth,
         child_idx=put(child_idx, np.int32), node_desc=put(node_desc, np.uint8),
         node_word=put(node_word, np.int32),
         word_weight=np.asarray(word_weight).astype(np.float32), depth=int(depth))
+
+
+def build_tree_vocabulary(descriptors: np.ndarray, k: int = 10, depth: int = 4, seed: int = 0,
+                          min_cluster: int = 8, device=None) -> TreeVocabulary:
+    """Hierarchical Hamming k-medians (TemplatedVocabulary::create
+    semantics, :570-760, with FORB::meanValue bit-majority centroids), built
+    on the host; the result lies on `device`.
+
+    The nodes are split depth first in the reference's order, and each
+    node's k-medians draws from the one numpy generator as the reference's
+    does (the distinct seeds, then the re-seeding of empty clusters, up to 6
+    rounds), so the tree equals the reference's. The reference unpacks the
+    XOR of every (descriptor, centroid) pair to bits; here the same integer
+    distances come from popcount(a) + popcount(b) - 2 <a, b>, with <a, b>
+    and the majority sums float32 matrix products of 0/1 bits (every sum is
+    an integer below 2^24, so exact). Ties go to the first minimum.
+    """
+    rng = np.random.default_rng(seed)
+    descriptors = np.ascontiguousarray(descriptors, np.uint8)
+    bits_all = np.unpackbits(descriptors, axis=1, bitorder="little").astype(np.float32)
+
+    child_idx: list[list[int]] = [[]]   # node 0 = root
+    node_desc: list[np.ndarray] = [np.zeros(32, np.uint8)]
+    node_word: list[int] = [-1]
+    weights: list[float] = []
+
+    def kmedians(idx: np.ndarray, kk: int):
+        """Cluster a descriptor subset into kk groups: (assign, centroids)."""
+        sub = descriptors[idx]
+        bits = bits_all[idx]
+        pop = bits.sum(1).astype(np.int64)
+        kk = min(kk, len(idx))
+        cols = np.arange(len(idx))
+        cents = sub[rng.choice(len(idx), kk, replace=False)].copy()
+        for _ in range(6):
+            cb = np.unpackbits(cents, axis=1, bitorder="little").astype(np.float32)
+            dot = (bits @ cb.T).astype(np.int64)
+            d = pop[:, None] + cb.sum(1).astype(np.int64)[None, :] - 2 * dot
+            assign = d.argmin(1)
+            onehot = np.zeros((kk, len(idx)), np.float32)
+            onehot[assign, cols] = 1.0
+            sums = (onehot @ bits).astype(np.int64)
+            cnt = np.bincount(assign, minlength=kk)
+            maj = (sums * 2 > cnt[:, None]).astype(np.uint8)
+            empty = np.nonzero(cnt == 0)[0]
+            if len(empty):
+                maj[empty] = bits[rng.choice(len(idx), len(empty))].astype(np.uint8)
+            new = (maj.reshape(-1, 32, 8) << np.arange(8)).sum(2).astype(np.uint8)
+            if (new == cents).all():
+                break
+            cents = new
+        return assign, cents
+
+    def split(node: int, idx: np.ndarray, level: int):
+        if level >= depth or len(idx) < max(k, min_cluster):
+            # leaf: the next word id, its idf weight from the training counts
+            node_word[node] = len(weights)
+            weights.append(float(np.log(len(descriptors) / max(len(idx), 1))))
+            return
+        assign, cents = kmedians(idx, k)
+        for c in range(len(cents)):
+            sel = idx[assign == c]
+            if len(sel) == 0:
+                continue
+            nid = len(node_desc)
+            node_desc.append(cents[c])
+            node_word.append(-1)
+            child_idx.append([])
+            child_idx[node].append(nid)
+            split(nid, sel, level + 1)
+
+    split(0, np.arange(len(descriptors)), 0)
+
+    kmax = max((len(c) for c in child_idx), default=1) or 1
+    ci = np.full((len(node_desc), kmax), -1, np.int32)
+    for n, c in enumerate(child_idx):
+        ci[n, : len(c)] = c
+    return tree_from_arrays(
+        ci, np.stack(node_desc), np.array(node_word, np.int32),
+        np.array(weights, np.float32) if weights else np.ones(1, np.float32), depth,
+        device=device)
 
 
 def load_dbow2_tree(path: str, device=None) -> TreeVocabulary:

@@ -102,3 +102,45 @@ def test_frustum_check():
     _close(inv_z[sel], np.asarray(jinv_z)[sel])
     _close(view_cos, jview)
     _close(dist, jdist)
+
+
+def test_unproject_distort_project_distorted():
+    rng = np.random.default_rng(4)
+    K4 = np.array([500.0, 505.0, 320.0, 240.0], np.float32)
+    dist = np.array([0.1, -0.05, 0.001, -0.002], np.float32)
+    pix = np.stack([rng.uniform(0, 640, 200), rng.uniform(0, 480, 200)], 1).astype(np.float32)
+    _close(tcam.unproject(torch.from_numpy(pix), torch.from_numpy(K4)),
+           jax.jit(jcam.unproject)(jnp.asarray(pix), jnp.asarray(K4)))
+    xy = rng.uniform(-0.8, 0.8, (200, 2)).astype(np.float32)
+    _close(tcam.distort_normalized(torch.from_numpy(xy), torch.from_numpy(dist)),
+           jax.jit(jcam.distort_normalized)(jnp.asarray(xy), jnp.asarray(dist)))
+    xc = np.stack([rng.uniform(-2, 2, 200), rng.uniform(-1.5, 1.5, 200),
+                   rng.uniform(0.5, 4, 200)], 1).astype(np.float32)
+    _close(tcam.project_distorted(torch.from_numpy(xc), torch.from_numpy(K4),
+                                  torch.from_numpy(dist)),
+           jax.jit(jcam.project_distorted)(jnp.asarray(xc), jnp.asarray(K4), jnp.asarray(dist)),
+           rtol=0.0, atol=PX_TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_log_se3_camera_center_pose7(seed):
+    rng = np.random.default_rng(seed)
+    w = _rotvecs(rng, 32)
+    w[4:] *= np.float32(0.8)  # away from pi, where log is two-valued
+    xi = np.concatenate([w, rng.normal(size=(32, 3)).astype(np.float32)], 1)
+    jR, jt = jax.jit(jse3.exp_se3)(jnp.asarray(xi))
+    R, t = torch.from_numpy(np.asarray(jR)), torch.from_numpy(np.asarray(jt))
+    # the reference's log_so3 and the port's (through the quaternion) are
+    # two formulas: within 1e-6 all the same, and log(exp(xi)) within 2e-6
+    # of xi
+    log = tse3.log_se3(R, t)
+    jlog = jax.jit(jse3.log_se3)(jR, jt)
+    _close(log, jlog, rtol=0.0, atol=1e-6)
+    _close(log, xi, rtol=0.0, atol=2e-6)
+    _close(tse3.camera_center(R, t), jax.jit(jse3.camera_center)(jR, jt))
+    p7 = tse3.pose7_from_Rt(R, t)
+    _close(p7, jax.jit(jse3.pose7_from_Rt)(jR, jt))
+    R2, t2 = tse3.Rt_from_pose7(p7)
+    jR2, jt2 = jax.jit(jse3.Rt_from_pose7)(jnp.asarray(p7.numpy()))
+    _close(R2, jR2)
+    _close(t2, jt2)

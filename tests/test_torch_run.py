@@ -92,9 +92,13 @@ def test_run_without_a_device_raises(monkeypatch):
         run.main(["--dataset", "synthetic:forward", "--frames", "2"])
 
 
-def test_run_viz_refused():
-    with pytest.raises(SystemExit):
-        run.main(BASE + ["--viz", "out"])
+def test_run_viz_refused(tmp_path):
+    """`--viz DIR` is refused, before any work, when DIR cannot be made (a
+    file lies there); tests/test_torch_viz.py drives the option itself."""
+    blocker = tmp_path / "out"
+    blocker.write_text("")
+    with pytest.raises(FileExistsError):
+        run.main(BASE + ["--viz", str(blocker)])
 
 
 def test_eval_run_sequence_keys():

@@ -59,13 +59,20 @@ def jax_sim3_sets(key, mask: np.ndarray, n_hyp: int = SIM3_HYP) -> np.ndarray:
     return np.array(jax.lax.top_k(scores, 3)[1]).astype(np.int32)
 
 
-def run_reference(name: str, seed: int, vocab, global_ba: bool = True, eg_edges=None) -> dict:
+def run_reference(name: str, seed: int, vocab, global_ba: bool = True, eg_edges=None,
+                  distributed: bool = False) -> dict:
     """The JAX `LoopCloser` over the tail of scene `name`, then global BA.
     Returns the recorded outcome (see the module's docstring) plus `st`,
     the JAX map as the run left it, `info`, the scene's description, and
-    `eg_problem`, the essential-graph problem as numpy arrays."""
+    `eg_problem`, the essential-graph problem as numpy arrays.
+
+    `distributed=True` keeps `cfg.distributed_gba`, so that with several
+    devices the closer takes its edge-sharded essential graph; the result
+    then also holds `eg_shards` (the shard count) and `eg_result` (s, R, t
+    of the sharded solve)."""
     import jax
 
+    from orbslam_jpminipc_tpu import parallel as par
     from orbslam_jpminipc_tpu.config import SlamConfig
     from orbslam_jpminipc_tpu.map.keyframe_db import KeyFrameDatabase
     from orbslam_jpminipc_tpu.map.map_state import MapState
@@ -76,7 +83,7 @@ def run_reference(name: str, seed: int, vocab, global_ba: bool = True, eg_edges=
 
     st, info = loop_scene.build_loop_scene(MapState, name, seed)
     cfg = SlamConfig(**info["cfg"])
-    cfg.distributed_gba = False   # the single-device solvers, whatever devices there are
+    cfg.distributed_gba = distributed   # False: the single-device solvers, whatever devices
     if eg_edges is not None:
         cfg.eg_edges = eg_edges
     kfdb = KeyFrameDatabase(vocab, st.max_kf)
@@ -89,7 +96,8 @@ def run_reference(name: str, seed: int, vocab, global_ba: bool = True, eg_edges=
     tracer = get_tracer()
     real = dict(log=tracer.log, solve=lc._solve_sim3, opt=lc.sim3_opt.optimize_sim3,
                 eg=lc.essential_graph.optimize_essential_graph,
-                build=lc.LoopCloser._essential_graph)
+                build=lc.LoopCloser._essential_graph, shard=par.shard_essential_graph,
+                sharded=par.sharded_optimize_essential_graph)
 
     def spy_solve(key, *a, **k):
         res = real["solve"](key, *a, **k)
@@ -109,6 +117,17 @@ def run_reference(name: str, seed: int, vocab, global_ba: bool = True, eg_edges=
         graph["chi2"] = float(res.chi2)
         return res
 
+    def spy_shard(prob, n_shards):
+        graph["problem"] = {f: np.asarray(getattr(prob, f)) for f in prob._fields}
+        graph["shards"] = n_shards
+        return real["shard"](prob, n_shards)
+
+    def spy_sharded(sprob, mesh, iterations=20):
+        res = real["sharded"](sprob, mesh, iterations=iterations)
+        graph["chi2"] = float(res.chi2)
+        graph["result"] = {f: np.asarray(getattr(res, f)) for f in ("s", "R", "t")}
+        return res
+
     def spy_build(self, kf, loop_kf, covis_after, corrected, pre_R, pre_t, loop_connections,
                   corrected_by):
         graph["kinds"] = loop_scene.eg_edge_kinds(st, kf, loop_kf, covis_after, loop_connections)
@@ -120,6 +139,8 @@ def run_reference(name: str, seed: int, vocab, global_ba: bool = True, eg_edges=
     lc.sim3_opt.optimize_sim3 = spy_opt
     lc.essential_graph.optimize_essential_graph = spy_eg
     lc.LoopCloser._essential_graph = spy_build
+    par.shard_essential_graph = spy_shard
+    par.sharded_optimize_essential_graph = spy_sharded
     per_kf = []
     try:
         for k in info["tail"]:
@@ -138,6 +159,8 @@ def run_reference(name: str, seed: int, vocab, global_ba: bool = True, eg_edges=
         lc.sim3_opt.optimize_sim3 = real["opt"]
         lc.essential_graph.optimize_essential_graph = real["eg"]
         lc.LoopCloser._essential_graph = real["build"]
+        par.shard_essential_graph = real["shard"]
+        par.sharded_optimize_essential_graph = real["sharded"]
 
     out = dict(st=st, info=info, per_kf=per_kf, centres_before=centres_before,
                closed_kf=next((r["kf"] for r in per_kf if r["closed"]), -1))
@@ -154,6 +177,7 @@ def run_reference(name: str, seed: int, vocab, global_ba: bool = True, eg_edges=
         guided_total=[int(e["total"]) for e in guided],
         eg_kinds=graph["kinds"], eg_chi2=graph["chi2"], eg_problem=graph["problem"],
         eg_n_edges=int(graph["problem"]["e_valid"].sum()),
+        eg_shards=graph.get("shards", 1), eg_result=graph.get("result"),
         kf_R=st.kf_R.copy(), kf_t=st.kf_t.copy(), mp_xyz=st.mp_xyz.copy(),
         mp_valid=st.mp_valid.copy(), kf_valid=st.kf_valid.copy(),
         loop_edges=sorted((int(a), int(b)) for a in range(st.max_kf)
