@@ -25,12 +25,31 @@ Phases (any failure raises, so the script exits non-zero):
                  checked against the reference's recorded outputs; the FAST
                  kernel must have run once per frame. Then one frame from
                  a perturbed seed pose, where the step must take its wide
-                 recovery pass, against the reference's outputs there
+                 recovery pass, against the reference's outputs there. The
+                 step runs as its captured programs (utils/program.py),
+                 captured by `FusedContext.capture` before the first frame,
+                 here and in the next two phases
   5. throughput  100 steps cycling the fixture, re-seeding the pose at each
                  wrap: p50/p95 ms per frame, frames/s, peak device memory
   6. breakdown   the step's layers timed alone at the step's shapes, and a
-                 torch.profiler window over 9 steps (device busy share)
-  7. system      `Slam(cfg, vocab=None, device="cuda")` at the shipping widths
+                 torch.profiler window over 9 steps (device busy share,
+                 launches from the host)
+  6b. graphs     each captured program against its eager run on the card:
+                 the step (torch.equal on every output and on the state it
+                 feeds forward) on the fixture's 10 frames fed forward, the
+                 recovery frame and a low-texture frame (a flat grey frame
+                 with one 96 x 96 window of fixture frame 0: levels take the
+                 extractor's slow path); both arms of both host tests must
+                 run. The step's launches from the host (torch.profiler's
+                 runtime events: at most 11 graph replays and 40 launches)
+                 and host reads by source line (sync debug mode), captured
+                 against eager. The local-BA stages (5 and 10 iterations) on
+                 the last keyframe's problem after 10 system fixture frames:
+                 chi2 and outlier flags against two eager runs, ms
+  7. system      `Slam(cfg, vocab=None, device="cuda")` at the shipping widths,
+                 after `Slam.warmup()` (timed; every phase below that builds a
+                 `Slam` warms it up first, run.py included, and counts FAST
+                 launches and frames from the warmup's end)
                  over the 28 frames of the system fixture, from the first
                  frame (initialization, keyframes, triangulation, fusion,
                  local BA, culling), the reference's RANSAC minimal sets
@@ -208,6 +227,18 @@ SEQ_TRACKED_MIN = 290
 SEQ_KF_ATE_MAX = 0.9e-3 + SYS_ATE_MARGIN
 RESUME_FROM, RESUME_TO = 100, 160   # frames fed to the resumed system
 RESUME_WITHIN = 10                  # WORKING again within this many (tests/test_torch_checkpoint.py)
+# the graphs phase: the captured programs against their eager runs. A WORKING
+# step is at most 11 replays (detect, 8 picks, pass 1, pass 2) and 40 launches
+# from the host with the copies; the local-BA stages within the spread the
+# card's atomics (index_add_) give two eager runs: chi2 relative, and the
+# share of observations whose outlier flag differs. The low-texture frame's
+# window, and the system fixture frames that build the BA's map
+GRAPH_REPLAYS_MAX = 11
+GRAPH_LAUNCHES_MAX = 40
+GRAPH_BA_CHI2_REL = 1e-3
+GRAPH_BA_FLAG_SHARE = 2e-3
+GRAPH_FLAT_WINDOW = 96
+GRAPH_BA_FRAMES = 10
 # the card's published peaks (NVIDIA H100 SXM data sheet) for the kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -477,6 +508,9 @@ def _context(FusedContext, SlamConfig, fx):
                      pipelined_tracking=False)
     ctx = FusedContext(cfg, device="cuda")
     ctx.set_slice(fx["slice_buf"])
+    # every program of the step captured before the first frame (the
+    # context's part of Slam.warmup)
+    ctx.capture()
     return ctx
 
 
@@ -547,22 +581,13 @@ def phase_slice(torch, fast_cuda, FusedContext, SlamConfig, fx):
 def _recovery_frame(torch, ctx, image, fx):
     """One step from the system fixture's perturbed seed pose: pass 1 must
     collapse, the wide recovery pass run, and the result agree with the
-    reference's outputs for that frame."""
+    reference's outputs for that frame. The step's pass 1 count is its
+    recovery test's read; the kept count (`n_inl1`) is then the recovery
+    pass's."""
     sf = dict(np.load(SLAM_FIXTURE))
     ctx.set_pose(sf["recovery_R0"], sf["recovery_t0"], velocity=(fx["vel_R0"], fx["vel_t0"]))
-    inliers = []
-    match_pass = ctx.step._match_pass
-
-    def counting(*a, **k):
-        r = match_pass(*a, **k)
-        inliers.append(int(r.res.n_inliers))
-        return r
-
-    ctx.step._match_pass = counting
-    try:
-        out = ctx.track(image)
-    finally:
-        ctx.step._match_pass = match_pass
+    out = ctx.track(image)
+    inliers = [ctx.last_pass1_inliers, int(out.n_inl1)]
     stats = [int(out.n_inl2), int(out.n_inl1), int(out.n_match2), int(out.n_match1)]
     ref = sf["recovery_out_stats"].tolist()
     row = {
@@ -572,7 +597,7 @@ def _recovery_frame(torch, ctx, image, fx):
         "bind_eq": float(np.mean(out.feat_bind.cpu().numpy() == sf["recovery_out_feat_bind"])),
     }
     log(f"[slice] recovery frame: {json.dumps(row)}")
-    if len(inliers) != 3 or not inliers[0] < 20 <= inliers[1]:
+    if not inliers[0] < 20 <= inliers[1]:
         raise AssertionError(f"the recovery pass did not run as expected: {inliers}")
     if max(row["dR"], row["dt"]) > TOL_POSE or row["bind_eq"] < TOL_BIND:
         raise AssertionError(f"recovery frame off the reference: {row}")
@@ -679,16 +704,264 @@ def phase_breakdown(torch, fx, FusedContext, SlamConfig):
         "device_us": dev_us,
         "device_ms_per_step": dev_us / n_steps / 1e3,
         "kernels_per_step": sum(e.count for e in kernels) / n_steps,
+        "host_launches_per_step": _launch_counts(prof, n_steps)["host_launches_per_call"],
         "top_kernels": [
             {"name": e.key, "device_us": _device_time_us(e), "count": e.count}
             for e in top],
     }
     log(f"[breakdown] profiler: {prof_res['device_ms_per_step']:.2f} ms of "
-        f"kernel time and {prof_res['kernels_per_step']:.0f} kernels per step "
+        f"kernel time and {prof_res['kernels_per_step']:.0f} kernels per step, "
+        f"{prof_res['host_launches_per_step']:.1f} launches from the host "
         f"(wall under the profiler {wall_us / 1e3:.1f} ms for {n_steps} steps)")
     for e in prof_res["top_kernels"][:8]:
         log(f"[breakdown]   {e['device_us'] / 1e3:9.3f} ms x{e['count']:5d}  {e['name'][:90]}")
     return {"layers_ms": parts, "profile": prof_res}
+
+
+# host calls that put work on the card (torch.profiler's CUDA runtime events)
+_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy2DAsync")
+
+
+def _launch_counts(prof, n):
+    """Per call over a profiled window of `n` calls: the host's calls that
+    put work on the card, by name (a graph replay is one `cudaGraphLaunch`),
+    and the device's kernels and copies with their time."""
+    host, device, dev_us = {}, 0, 0.0
+    for e in prof.key_averages():
+        if _is_device_event(e):
+            device += e.count
+            dev_us += _device_time_us(e)
+        else:
+            base = e.key.split("_v")[0]
+            if base in _LAUNCH_APIS:
+                host[base] = host.get(base, 0) + e.count
+    return {"host_launches_per_call": sum(host.values()) / n,
+            "host_by_api_per_call": {k: v / n for k, v in sorted(host.items())},
+            "device_ops_per_call": device / n, "device_ms_per_call": dev_us / n / 1e3}
+
+
+def _low_texture_frame(image, window=GRAPH_FLAT_WINDOW):
+    """A mostly flat frame: mid-grey, with one `window` x `window` square of
+    a fixture frame at its centre. Its corners crowd into a few cells, so
+    their candidates cannot fill the finest level's quota: that level takes
+    the extractor's slow path (its fast-path flag is false)."""
+    out = np.full_like(image, 128)
+    y, x = (image.shape[0] - window) // 2, (image.shape[1] - window) // 2
+    out[y:y + window, x:x + window] = image[y:y + window, x:x + window]
+    return out
+
+
+def _step_fields(out):
+    d = {k: getattr(out, k) for k in out._fields if k != "feats"}
+    d.update({f"feats.{k}": getattr(out.feats, k) for k in out.feats._fields})
+    return d
+
+
+def phase_graphs(torch, fast_cuda, FusedContext, SlamConfig, fx, smi):
+    """The captured programs against their eager runs on the card, in this
+    process: the WORKING step (equal bits) on the fixture's 10 frames fed
+    forward, the recovery frame and a low-texture frame; its launches from
+    the host and host reads per step; the local-BA stages (chi2, outlier
+    flags, ms) on a problem from the system fixture's map."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from orbslam_jpminipc_torch.map.device_map import local_ba_kernel
+    from orbslam_jpminipc_torch.pipeline.system import Slam
+
+    res = {"card": smi}
+    sf = dict(np.load(SLAM_FIXTURE))
+    cfg = SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, k1=0.0, k2=0.0, p1=0.0, p2=0.0,
+                     n_features=1000, pipelined_tracking=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # as each capture does: what stays reserved is the pools'
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_reserved()
+    ctx = FusedContext(cfg, device="cuda")
+    ctx.set_slice(fx["slice_buf"])
+    t0 = time.perf_counter()
+    ctx.capture()
+    torch.cuda.synchronize()
+    res["step_capture_s"] = time.perf_counter() - t0
+    res["step_programs"] = {p.name: [str(v) for v in p.variants] for p in ctx.programs}
+    res["step_reserved_bytes"] = torch.cuda.memory_reserved() - mem0
+    log(f"[graphs] {smi}: the step's programs captured in {res['step_capture_s']:.2f} s: "
+        f"{json.dumps(res['step_programs'])}; memory reserved by them "
+        f"{res['step_reserved_bytes']} bytes")
+
+    # -- the step, captured against eager: equal bits -------------------------
+    images = [torch.as_tensor(im).cuda() for im in fx["images"]]
+    flat = torch.as_tensor(_low_texture_frame(fx["images"][0])).cuda()
+    frames = [(f"fixture {k}", im, None) for k, im in enumerate(images)]
+    frames += [("recovery", images[0], (sf["recovery_R0"], sf["recovery_t0"],
+                                        (fx["vel_R0"], fx["vel_t0"]))),
+               ("low texture", flat, None)]
+    _seed(ctx, fx)
+    state = [x.clone() for x in (ctx.R, ctx.t, ctx.vel_R, ctx.vel_t, ctx.has_vel)]
+    rows = []
+    l_graph = l_eager = 0
+    for name, img, seed in frames:
+        if seed is not None:
+            ctx.set_pose(seed[0], seed[1], velocity=seed[2])
+            state = [x.clone() for x in (ctx.R, ctx.t, ctx.vel_R, ctx.vel_t, ctx.has_vel)]
+        n0 = fast_cuda.LAUNCHES
+        with torch.no_grad():
+            eager = ctx.step(img, *state, ctx.slice)
+        n1 = fast_cuda.LAUNCHES
+        got = ctx.track(img)
+        n2 = fast_cuda.LAUNCHES
+        l_eager, l_graph = l_eager + n1 - n0, l_graph + n2 - n1
+        want = _step_fields(eager)
+        differ = [k for k, v in _step_fields(got).items() if not torch.equal(v, want[k])]
+        state_eq = all(torch.equal(a, b) for a, b in zip(
+            (ctx.R, ctx.t, ctx.vel_R, ctx.vel_t), (eager.R, eager.t, eager.vel_R, eager.vel_t)))
+        rows.append({"frame": name, "differ": differ, "state_equal": state_eq,
+                     "pass1_inliers": ctx.last_pass1_inliers,
+                     "recovery": ctx.last_pass1_inliers < 20,
+                     "slow_levels": [k for k, ok in enumerate(ctx.last_fast_ok) if not ok],
+                     "n_inl2": int(got.n_inl2)})
+        log(f"[graphs] {name}: captured vs eager, fields differing {differ}, state equal "
+            f"{state_eq}; pass 1 inliers {ctx.last_pass1_inliers}, recovery "
+            f"{rows[-1]['recovery']}, slow-path levels {rows[-1]['slow_levels']}, "
+            f"pass 2 inliers {rows[-1]['n_inl2']}")
+        state = [eager.R, eager.t, eager.vel_R, eager.vel_t,
+                 torch.tensor(cfg.use_motion_model, device="cuda")]
+    res["step_frames"] = rows
+    res["fast_launches"] = {"captured": l_graph, "eager": l_eager}
+    if any(r["differ"] or not r["state_equal"] for r in rows):
+        raise AssertionError(f"[graphs] the captured step differs from the eager one: {rows}")
+    if not any(r["recovery"] for r in rows) or not any(r["slow_levels"] for r in rows):
+        raise AssertionError("[graphs] the frames did not take both arms of both host tests")
+    if l_graph != len(frames) or l_eager != len(frames):
+        raise AssertionError(f"[graphs] FAST launches {l_graph} captured, {l_eager} eager, "
+                             f"expected one a frame over {len(frames)}")
+
+    # -- launches from the host and host reads per step ------------------------
+    n = len(images) - 1
+
+    eager_state = []
+
+    def eager_step(img):
+        with torch.no_grad():
+            out = ctx.step(img, *eager_state, ctx.slice)
+        eager_state[:] = [out.R, out.t, out.vel_R, out.vel_t, eager_state[4]]
+
+    def window(step):
+        _seed(ctx, fx)
+        eager_state[:] = [x.clone() for x in (ctx.R, ctx.t, ctx.vel_R, ctx.vel_t, ctx.has_vel)]
+        step(images[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for k in range(1, len(images)):
+                step(images[k])
+            torch.cuda.synchronize()
+        return _launch_counts(prof, n)
+
+    captured = window(ctx.track)
+    eager = window(eager_step)
+    sites, stacks = _sync_stacks(torch, lambda: [ctx.track(im) for im in images[1:]])
+    # a wait with no line of the port on its stack is not the step's
+    ours = {k: v for k, v in sites.items() if stacks.get(k)}
+    res["launches"] = {"captured": captured, "eager": eager}
+    res["host_reads_per_step"] = sum(ours.values()) / n
+    res["host_read_sites"] = sites
+    res["host_read_stacks"] = stacks
+    graphs = captured["host_by_api_per_call"].get("cudaGraphLaunch", 0)
+    log(f"[graphs] {smi}: per step, captured: {json.dumps(captured)}")
+    log(f"[graphs] {smi}: per step, eager: {json.dumps(eager)}")
+    log(f"[graphs] host reads per step (FusedContext.track; the tracker's fetch is a third): "
+        f"{res['host_reads_per_step']:.2f} at {json.dumps(ours)}; all waits in the window "
+        f"{json.dumps(sites)}, the port's lines on their stacks {json.dumps(stacks)}")
+    if graphs > GRAPH_REPLAYS_MAX or captured["host_launches_per_call"] > GRAPH_LAUNCHES_MAX:
+        raise AssertionError(f"[graphs] {graphs} replays and {captured['host_launches_per_call']} "
+                             f"launches from the host a step")
+    if res["host_reads_per_step"] > 2:
+        raise AssertionError(f"[graphs] {res['host_reads_per_step']} host reads a step: {ours}")
+
+    # -- each segment's replay alone (CUDA events, the copies included) ------
+    _seed(ctx, fx)
+    ctx.track(images[0])
+    det = ctx._detect.run(None, images[0])
+    state = (ctx.R, ctx.t, ctx.vel_R, ctx.vel_t, ctx.has_vel)
+    p1 = ctx._pass1.run(None, det, ctx._picks_out, *state, ctx._slice)
+    res["segment_ms"] = {
+        "detect": _event_ms(torch, lambda: ctx._detect.run(None, images[0]), n=10, batch=5),
+        "picks": _event_ms(torch, lambda: ctx._picks(det, ctx.last_fast_ok), n=10, batch=5),
+        "pass1": _event_ms(torch, lambda: ctx._pass1.run(None, det, ctx._picks_out, *state,
+                                                         ctx._slice), n=10, batch=5),
+        "pass2": _event_ms(torch, lambda: ctx._pass2.run(False, p1, ctx._slice, *state),
+                           n=10, batch=5),
+        "pass2_recovery": _event_ms(torch, lambda: ctx._pass2.run(True, p1, ctx._slice, *state),
+                                    n=10, batch=5),
+    }
+    log(f"[graphs] {smi}: ms per replay of each segment (CUDA events): "
+        f"{json.dumps(res['segment_ms'])}")
+
+    # -- the local-BA stages on a real problem ---------------------------------
+    slam = Slam(SlamConfig(**json.loads(str(sf["meta"]))["config"]), vocab=None, device="cuda")
+    t0 = time.perf_counter()
+    slam.warmup()
+    torch.cuda.synchronize()
+    res["warmup_s"] = time.perf_counter() - t0
+    sets = iter(torch.as_tensor(x).cuda() for x in sf["init_sets"])
+    slam.tracker.sampler = lambda mask, n_hyp: next(sets)
+    for img, ts in zip(sf["images"][:GRAPH_BA_FRAMES], sf["timestamps"][:GRAPH_BA_FRAMES]):
+        slam.process(img, float(ts))
+    slam.finish()
+    m = slam.mapper
+    kf = int(np.nonzero(slam.map.kf_valid)[0].max())
+    prob, _, _, obs_src, (obs_feat, obs_src_kf) = m.build_local_ba_problem(kf)
+    inv_sigma2 = slam.cfg.inv_sigma2.astype(np.float32)
+
+    def stage(iterations, R, t, pts, valid, program):
+        return local_ba_kernel(m.dmap, R, t, prob.kf_fixed, pts, prob.point_valid, prob.obs_kf,
+                               prob.obs_pt, obs_feat, obs_src_kf, valid, prob.K4, inv_sigma2,
+                               iterations=iterations, program=program)
+
+    def timed_ms(fn, reps=5):
+        out, ms = None, []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(ms)
+
+    ba = {"kf": kf, "observations": len(obs_src), "shape": [int(prob.kf_R.shape[0]),
+                                                            int(prob.points.shape[0]),
+                                                            int(prob.obs_kf.shape[0])]}
+    valid = np.asarray(prob.obs_valid)
+    start = (prob.kf_R, prob.kf_t, prob.points, valid)
+    for iterations in (5, 10):
+        g, g_ms = timed_ms(lambda: stage(iterations, *start, m.ba_program))
+        e, e_ms = timed_ms(lambda: stage(iterations, *start, None))
+        e2 = stage(iterations, *start, None)
+        chi2 = [float(x.chi2) for x in (g, e, e2)]
+        flags = [x.obs_outlier.cpu().numpy() for x in (g, e, e2)]
+        row = {"captured_ms": g_ms, "eager_ms": e_ms,
+               "chi2_captured": chi2[0], "chi2_eager": chi2[1], "chi2_eager_again": chi2[2],
+               "chi2_rel": abs(chi2[0] - chi2[1]) / max(abs(chi2[1]), 1e-30),
+               "chi2_rel_eager_again": abs(chi2[2] - chi2[1]) / max(abs(chi2[1]), 1e-30),
+               "outliers": int(flags[1].sum()),
+               "flags_differ": int((flags[0] != flags[1]).sum()),
+               "flags_differ_eager_again": int((flags[2] != flags[1]).sum()),
+               "dR": float((g.kf_R - e.kf_R).abs().max()),
+               "dt": float((g.kf_t - e.kf_t).abs().max())}
+        ba[f"stage_{iterations}"] = row
+        log(f"[graphs] {smi}: local BA {iterations} iterations at {ba['shape']}, "
+            f"{ba['observations']} observations: {json.dumps(row)}")
+        if row["chi2_rel"] > GRAPH_BA_CHI2_REL or (
+                row["flags_differ"] > GRAPH_BA_FLAG_SHARE * len(obs_src)):
+            raise AssertionError(f"[graphs] the captured local BA is off the eager one: {row}")
+        # stage 2 starts from stage 1's eager result, outliers cut
+        start = (e.kf_R, e.kf_t, e.points, valid & ~flags[1])
+    res["local_ba"] = ba
+    res["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+    res["reserved_bytes"] = int(torch.cuda.memory_reserved())
+    log(f"[graphs] {smi}: Slam.warmup {res['warmup_s']:.1f} s; peak device memory "
+        f"{res['peak_mem_bytes']} bytes allocated, {res['reserved_bytes']} reserved")
+    return res
 
 
 def _percentiles(xs, unit="_ms"):
@@ -729,21 +1002,22 @@ def phase_system(torch, fast_cuda, smi):
     images = [torch.as_tensor(im).cuda() for im in sf["images"]]
     n = len(images)
 
+    warmup_s = []
+
     def make():
         slam = Slam(cfg, vocab=None, device="cuda")
+        # the programs captured and the first-call costs taken before the
+        # first frame; the reference's minimal sets injected after it
+        t0 = time.perf_counter()
+        slam.warmup()
+        torch.cuda.synchronize()
+        warmup_s.append(time.perf_counter() - t0)
         sets = iter(torch.as_tensor(x).cuda() for x in sf["init_sets"])
         slam.tracker.sampler = lambda mask, n_hyp: next(sets)
         kf_events = []
         process = slam.mapper.process
         slam.mapper.process = lambda frame: (kf_events.append(frame.frame_id), process(frame))[1]
         return slam, kf_events
-
-    # warm-up on a separate system (library handles, allocator, first launches)
-    slam, _ = make()
-    for i in range(4):
-        slam.process(images[i], float(sf["timestamps"][i]))
-    torch.cuda.synchronize()
-    del slam
 
     def drive(slam, kf_events, count_syncs):
         """Feed the frames through `Slam.process`, one synchronised call
@@ -840,7 +1114,7 @@ def phase_system(torch, fast_cuda, smi):
         "ms_per_frame": groups,
         "syncs_per_frame": _percentiles([r["syncs"] for r in rows], unit=""),
         "fetches_per_frame": _percentiles([r["fetches"] for r in rows], unit=""),
-        "fast_launches": launches, "peak_mem_bytes": int(peak),
+        "fast_launches": launches, "peak_mem_bytes": int(peak), "warmup_s": warmup_s,
         "stages": stages, "rerun_vs_main": rerun, "rows": rows,
     }
     for k, g in groups.items():
@@ -849,7 +1123,8 @@ def phase_system(torch, fast_cuda, smi):
         f"second run) "
         f"{json.dumps(res['syncs_per_frame'])}; batched reads per frame "
         f"{json.dumps(res['fetches_per_frame'])}")
-    log(f"[system] {smi}: peak device memory {peak} bytes")
+    log(f"[system] {smi}: peak device memory {peak} bytes; Slam.warmup "
+        f"{[round(x, 2) for x in warmup_s]} s")
     log(f"[system] {smi}: stage summary {json.dumps(res['stages'])}")
     log(f"[system] outcome: states equal {states_eq}/{n}, keyframes {n_kf} (ref {ref_kf}), "
         f"points {n_pts} (ref {ref_pts}), max centre diff {res['max_dcentre']}, "
@@ -955,12 +1230,18 @@ def phase_reloc_async(torch, fast_cuda, smi):
     solves = _library_solves(torch)
     log(f"[reloc_async] {smi}: library solves alone, ms per call: {json.dumps(solves)}")
 
+    warmup_s = []
+
     def make(async_mapping, inject_pnp):
         cfg = SlamConfig(**dict(meta["config"], async_mapping=async_mapping))
         # Run A is the default constructor call (loop closing on); Run R
         # keeps one path without the "loop" stage's work covered
         slam = (Slam(cfg, vocab=vocab) if async_mapping
                 else Slam(cfg, vocab=vocab, enable_loop_closing=False))
+        t0 = time.perf_counter()
+        slam.warmup()
+        torch.cuda.synchronize()
+        warmup_s.append(time.perf_counter() - t0)
         isets = iter(torch.as_tensor(x).cuda() for x in rf["init_sets"])
         slam.tracker.sampler = lambda mask, n_hyp: next(isets)
         if inject_pnp:
@@ -1232,7 +1513,9 @@ def phase_reloc_async(torch, fast_cuda, smi):
         if res["upload_and_epnp_waits"]:
             raise AssertionError(f"[{name}] an upload or EPnP's index sets waited for the device: "
                                  f"{res['upload_and_epnp_waits']}")
-    return {"library_solves_ms": solves, "run_r": res_r, "run_a": res_a}
+    log(f"[reloc_async] {smi}: Slam.warmup of the four systems "
+        f"{[round(x, 2) for x in warmup_s]} s")
+    return {"library_solves_ms": solves, "run_r": res_r, "run_a": res_a, "warmup_s": warmup_s}
 
 
 def _upload_and_epnp_waits(sync_sites):
@@ -1258,10 +1541,11 @@ def _upload_and_epnp_waits(sync_sites):
 
 # ---- the constructed loop ------------------------------------------------------
 
-def loop_system(device, vocab):
+def loop_system(device, vocab, warmup=False):
     """A default-constructor `Slam(cfg, vocab=vocab)` on `device` whose map
     is the constructed loop scene the fixture names (tools/loop_scene.py
-    builds it from the seed). Returns (slam, info, fixture arrays, meta)."""
+    builds it from the seed), after `Slam.warmup()` when `warmup`. Returns
+    (slam, info, fixture arrays, meta)."""
     sys.path.insert(0, os.path.join(REPO, "tools"))
     import loop_scene
 
@@ -1277,6 +1561,8 @@ def loop_system(device, vocab):
         raise AssertionError(f"the scene's config {info['cfg']} is not the fixture's")
     cfg = SlamConfig(**info["cfg"])
     slam = Slam(cfg, vocab=vocab, device=device)
+    if warmup:
+        slam.warmup()
     if slam.loop_closer is None:
         raise AssertionError("the default constructor call built no loop closer")
     shape = (slam.map.max_kf, slam.map.max_mp, slam.map.n_feat, slam.map.max_obs)
@@ -1493,7 +1779,7 @@ def phase_loop(torch, fast_cuda, smi):
     # a first system, untimed, under CUDA sync debug mode: where the host
     # waits. It also takes the first-call costs (library handles, the
     # transforms' first trace) off the timed pass
-    slam2, info2, lf2, _ = loop_system("cuda", vocab)
+    slam2, info2, lf2, _ = loop_system("cuda", vocab, warmup=True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1517,10 +1803,13 @@ def phase_loop(torch, fast_cuda, smi):
         raise AssertionError(f"[loop] a solver's iterations wait for the host: {in_solvers}")
     del slam2
     # the main pass: timed by stage, held to the reference
-    (slam, info, lf, meta), build_ms = timed(lambda: loop_system("cuda", vocab))
+    (slam, info, lf, meta), build_ms = timed(lambda: loop_system("cuda", vocab, warmup=True))
+    # the phase's own path starts here: Slam.warmup drove frames through FAST
+    launches0 = fast_cuda.LAUNCHES
     log(f"[loop] scene {meta['scene']} seed {meta['seed']}: {slam.n_keyframes} keyframes, "
         f"{slam.n_points} points, capacities {slam.map.max_kf} x {slam.map.max_mp} x "
-        f"{slam.map.n_feat}, eg_edges {slam.cfg.eg_edges}, built in {build_ms:.0f} ms")
+        f"{slam.map.n_feat}, eg_edges {slam.cfg.eg_edges}, built in {build_ms:.0f} ms "
+        f"(Slam.warmup included)")
     tracer.reset()
     torch.cuda.reset_peak_memory_stats()   # (allocated bytes: the cache stays warm)
     reads0 = host.READS
@@ -1579,7 +1868,8 @@ def phase_loop(torch, fast_cuda, smi):
 
 # run in a process of its own: the command line's main path, each
 # `Slam.process` call timed to its return and sorted by frame group, the FAST
-# kernel's launches counted from 0 over the run
+# kernel's launches counted from 0 over the run after run.py's warmup (timed
+# apart: `wall_s` is run.main without it)
 _SEQUENCE_RUN = r"""
 import json, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -1602,16 +1892,30 @@ def timed(self, image, timestamp=0.0):
     rows.append({"ms": ms, "kind": kind, "state": out[0].value})
     return out
 
+warm, warm_s = Slam.warmup, []
+
+def warmup(self):
+    # run.py's warmup: timed on its own; the rows, keyframes and FAST
+    # launches count from its end
+    t0 = time.perf_counter()
+    warm(self)
+    torch.cuda.synchronize()
+    warm_s.append(time.perf_counter() - t0)
+    rows.clear()
+    kfs.clear()
+    fast_cuda.LAUNCHES = 0
+
 Slam.process = timed
+Slam.warmup = warmup
 LocalMapper.insert_keyframe = lambda self, frame: (kfs.append(frame.frame_id), insert(self, frame))[1]
 fast_cuda.build()
 fast_cuda.LAUNCHES = 0
 t0 = time.perf_counter()
 slam = run.main(sys.argv[2:])
 torch.cuda.synchronize()
-wall = time.perf_counter() - t0
+wall = time.perf_counter() - t0 - sum(warm_s)
 print("RESULT " + json.dumps({
-    "rows": rows, "fast_launches": fast_cuda.LAUNCHES, "wall_s": wall,
+    "rows": rows, "fast_launches": fast_cuda.LAUNCHES, "wall_s": wall, "warmup_s": warm_s,
     "frames_tracked": len(slam.trajectory), "n_keyframes": slam.n_keyframes,
     "n_points": slam.n_points, "loops_closed": slam.n_loops_closed,
     "keyframes_inserted": len(kfs), "peak_mem_bytes": torch.cuda.max_memory_allocated()}))
@@ -1700,7 +2004,9 @@ def phase_sequence(torch, fast_cuda, smi):
     log(f"[sequence] {smi}: run.py xyz:{SEQ_FRAMES}: tracked {r['frames_tracked']}/{len(rows)}, "
         f"keyframes {r['n_keyframes']} (inserted {r['keyframes_inserted']}), points "
         f"{r['n_points']}, loops closed {r['loops_closed']}, kf ATE {kf_ate * 1e3:.3f} mm "
-        f"(EVAL_r05: 298/300, 0.9 mm, 0), TUM lines {len(ts)}; run.main {r['wall_s']:.1f} s, "
+        f"(EVAL_r05: 298/300, 0.9 mm, 0), TUM lines {len(ts)}; run.main {r['wall_s']:.1f} s "
+        f"({SEQ_FRAMES / r['wall_s']:.2f} frames a second) after its warmup "
+        f"{r['warmup_s']} s, "
         f"the process {wall:.1f} s; FAST launches {r['fast_launches']}; peak device memory "
         f"{r['peak_mem_bytes']} bytes")
     if len(rows) != SEQ_FRAMES or r["fast_launches"] != SEQ_FRAMES:
@@ -1719,6 +2025,10 @@ def phase_sequence(torch, fast_cuda, smi):
     cfg = SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, k1=0.0, k2=0.0, p1=0.0, p2=0.0,
                      n_features=1000, pipelined_tracking=False)
     slam = Slam(cfg, vocab=load_vocabulary(VOCAB))
+    t0 = time.perf_counter()
+    slam.warmup()
+    torch.cuda.synchronize()
+    res["resume_warmup_s"] = time.perf_counter() - t0
     load_slam(world, slam)
     z = np.load(world)
     differ = [f for f in _ARRAY_FIELDS if not np.array_equal(getattr(slam.map, f), z[f])]
@@ -2191,6 +2501,7 @@ def main() -> int:
         "slice": lambda: phase_slice(torch, fast_cuda, FusedContext, SlamConfig, fx),
         "throughput": lambda: phase_throughput(torch, FusedContext, SlamConfig, fx),
         "breakdown": lambda: phase_breakdown(torch, fx, FusedContext, SlamConfig),
+        "graphs": lambda: phase_graphs(torch, fast_cuda, FusedContext, SlamConfig, fx, smi),
         "device_busy_share": busy_share,
         "system": lambda: phase_system(torch, fast_cuda, smi),
         "reloc_async": lambda: phase_reloc_async(torch, fast_cuda, smi),
@@ -2231,6 +2542,8 @@ def main() -> int:
         # the system phase's count: Slam.process over the 28 frames
         "launches": report["system"]["fast_launches"],
         "launches_slice_phase": report["slice"]["fast_launches"],
+        # the graphs phase's 12 frames through the captured step
+        "launches_graphs_phase": report["graphs"]["fast_launches"]["captured"],
         "launches_reloc_run": report["reloc_async"]["run_r"]["fast_launches"],
         "launches_async_run": report["reloc_async"]["run_a"]["fast_launches"],
         "launches_loop_phase": report["loop"]["fast_launches"],

@@ -32,12 +32,18 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 def run_sequence(seq, cfg, vocab, frames, gt_poses=None, verbose=True, warmup=True,
                  device=None):
     """Run `frames` frames of `seq` through a default `Slam` and return the
-    result dict of eval.py's `run_sequence`. `warmup` is accepted and
-    ignored: eager PyTorch has no programs to compile ahead."""
+    result dict of eval.py's `run_sequence`. With `warmup` the system
+    captures its programs (`Slam.warmup`) before the timed run, as eval.py
+    compiles them."""
     from orbslam_jpminipc_torch.io.trajectory import ate_rmse
     from orbslam_jpminipc_torch.pipeline.system import Slam
 
     slam = Slam(cfg, vocab=vocab, device=device)
+    if warmup:
+        t_w = time.time()
+        slam.warmup()
+        if verbose:
+            print(f"  warmup: {time.time() - t_w:.1f}s", file=sys.stderr)
     n = min(frames, len(seq))
     t0 = time.time()
     for i in range(n):
@@ -113,7 +119,7 @@ def main(argv=None):
                     help="write the aggregate results JSON to this path")
     ap.add_argument("--n-features", type=int, default=1000)
     ap.add_argument("--no-warmup", action="store_true",
-                    help="accepted for eval.py's command lines and ignored")
+                    help="skip each system's startup capture of its programs")
     ap.add_argument("--device", default=None,
                     help="device to run on (default: the current CUDA device)")
     args = ap.parse_args(argv)
@@ -131,7 +137,8 @@ def main(argv=None):
     if args.tum:
         cfg = SlamConfig(n_features=args.n_features, pipelined_tracking=False)
         seq = TumDataset(args.tum, device=device)
-        res = run_sequence(seq, cfg, vocab, args.frames, device=device)
+        res = run_sequence(seq, cfg, vocab, args.frames, warmup=not args.no_warmup,
+                           device=device)
         print(json.dumps({"metric": "tum_run", **res}))
         return
 
@@ -146,7 +153,8 @@ def main(argv=None):
         )
         seq = SyntheticSequence(n_frames=n, trajectory=name, seed=args.seed, device=device)
         gt = {round(float(seq.timestamps[i]), 6): seq.poses[i] for i in range(len(seq))}
-        res = run_sequence(seq, cfg, vocab, n, gt_poses=gt, device=device)
+        res = run_sequence(seq, cfg, vocab, n, gt_poses=gt, warmup=not args.no_warmup,
+                           device=device)
         # headline: the keyframe-trajectory ATE (main.cc:226-245, TRO'15)
         print(json.dumps({"metric": f"kf_ate_rmse_{name}", "unit": "m",
                           "value": res.get("kf_ate_rmse", res.get("ate_rmse")),

@@ -17,13 +17,19 @@ The pose, the velocity and the slice stay on the device between calls. The
 result is a small named tuple of tensors (`FusedOut`); the reference's
 single packed host-pull buffer is not needed here.
 
-Recovery: the reference's `lax.cond` becomes one host read of
-`n_inliers < 20` per frame (a synchronisation), and the recovery pass runs
-only on the frames that need it. Computing it on every frame and selecting
-would cost a third match-and-optimize pass on every frame.
+The reference runs the step as ONE XLA program with two `lax.cond`s in it:
+the extractor's fast/slow candidate path per level, and the recovery pass.
+Here each `lax.cond` becomes a host read (all levels' flags in one transfer;
+`n_inliers < 20`), and the step is three segments between them (`detect`,
+`pass1`, `pass2`, with `pick` per level). `FusedContext` runs each segment
+as a captured program (utils/program.py), one per arm of a cond: on a card
+a frame is a handful of graph replays. The recovery pass runs only on the
+frames that need it: computing it on every frame and selecting would cost a
+third match-and-optimize pass on every frame.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -33,11 +39,12 @@ from torch import nn
 from ..config import SlamConfig
 from ..geometry.camera import frustum_check, undistort_points
 from ..geometry.se3 import orthonormalize
-from ..ops import matching
-from ..ops.extractor import Features, extract
+from ..ops import extractor, matching
+from ..ops.extractor import Features
 from ..solvers import pose_opt
 from ..utils.device import resolve_device
 from ..utils.host import upload
+from ..utils.program import Program
 
 MAX_SLICE = 4096  # local-map slice capacity (points of the covisible set)
 
@@ -120,6 +127,21 @@ class _PassResult(NamedTuple):
     n_match: torch.Tensor   # ()
 
 
+class Pass1(NamedTuple):
+    """What the first two segments of the step hand to the third."""
+
+    feats: Features
+    xy_un: torch.Tensor
+    R_prev: torch.Tensor    # the pose fed in
+    t_prev: torch.Tensor
+    R0: torch.Tensor        # the motion-model prediction
+    t0: torch.Tensor
+    R1: torch.Tensor        # pass 1's pose
+    t1: torch.Tensor
+    n_inl1: torch.Tensor
+    n_match1: torch.Tensor
+
+
 class FusedStep(nn.Module):
     """The per-frame WORKING step for one camera/extractor configuration."""
 
@@ -128,6 +150,8 @@ class FusedStep(nn.Module):
         self.cfg = cfg
         self.n_map = n_map
         self.n_levels = cfg.n_levels
+        # (level, quota) of every pyramid level the extractor picks from
+        self.plan = extractor.level_plan(cfg.n_features, cfg.n_levels, cfg.scale_factor)
         self.has_dist = bool(np.any(cfg.dist4 != 0))
         self.register_buffer("K4", torch.from_numpy(cfg.K4))
         self.register_buffer("dist4", torch.from_numpy(cfg.dist4))
@@ -174,24 +198,37 @@ class FusedStep(nn.Module):
         res = pose_opt.optimize_pose(R, t, xw, xy_un, w, has, self.K4, n_rounds=n_rounds)
         return _PassResult(res, feat_pt, has, ok, torch.sum(m.mask))
 
-    def forward(self, image_u8, R_prev, t_prev, vel_R, vel_t, has_vel,
-                slc: MapSlice) -> FusedOut:
+    # -- the step's segments, cut at its two host reads ------------------
+
+    def detect(self, image_u8) -> extractor.Detection:
+        """Segment 1: pyramid, FAST and the cell candidates of a (H, W)
+        uint8 frame, up to the per-level fast-path flags."""
         cfg = self.cfg
+        return extractor.detect(
+            image_u8.to(torch.float32), n_features=cfg.n_features, n_levels=cfg.n_levels,
+            scale_factor=cfg.scale_factor, fast_th=cfg.fast_threshold,
+            fast_min_th=cfg.fast_min_threshold)
+
+    def pick(self, k: int, score, cand, fast_ok: bool):
+        """Level k's selection on the path its flag names (the reference's
+        `lax.cond(fast_ok, ...)` per level)."""
+        return extractor.pick(score, self.plan[k][1], cand, fast_ok)
+
+    def pass1(self, det: extractor.Detection, picks, R_prev, t_prev, vel_R, vel_t,
+              has_vel, slc: MapSlice) -> Pass1:
+        """Segment 2: descriptors, undistortion, the motion-model prediction
+        and pass 1, up to the recovery test."""
+        cfg = self.cfg
+        feats = extractor.describe(det, picks, n_features=cfg.n_features,
+                                   n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
+                                   use_harris_score=cfg.use_harris_score)
+        xy_un = (undistort_points(feats.xy, self.K4, self.dist4)
+                 if self.has_dist else feats.xy)
         valid = slc.max_dist > 0
         # established points: verified by >= 3 keyframes. When the young map
         # has too few of them, pass 1 anchors on everything.
         established = valid & (slc.n_obs >= 3)
         anchor = torch.where(torch.sum(established) >= 100, established, valid)
-
-        feats = extract(
-            image_u8.to(torch.float32),
-            n_features=cfg.n_features, n_levels=cfg.n_levels,
-            scale_factor=cfg.scale_factor, fast_th=cfg.fast_threshold,
-            fast_min_th=cfg.fast_min_threshold,
-            use_harris_score=cfg.use_harris_score,
-        )
-        xy_un = (undistort_points(feats.xy, self.K4, self.dist4)
-                 if self.has_dist else feats.xy)
 
         # motion-model pose prediction (Tracking.cc:297-310), re-projected
         # onto SO(3) so f32 drift never accumulates across frames
@@ -201,25 +238,34 @@ class FusedStep(nn.Module):
         # pass 1: wide search under the predicted pose, established anchors
         p1 = self._match_pass(R0, t0, slc, anchor, feats, xy_un,
                               radius_mult=3.0, nn_ratio=0.9, n_rounds=2)
-        r1 = p1.res
-        n_inl1, R1p, t1p = r1.n_inliers, r1.R, r1.t
+        # the pose fed in, copied: a context rewrites its pose buffers at
+        # the end of the step
+        return Pass1(feats=feats, xy_un=xy_un, R_prev=R_prev.clone(), t_prev=t_prev.clone(),
+                     R0=R0, t0=t0, R1=p1.res.R, t1=p1.res.t, n_inl1=p1.res.n_inliers,
+                     n_match1=p1.n_match)
+
+    def pass2(self, p: Pass1, slc: MapSlice, recover: bool) -> FusedOut:
+        """Segment 3: the recovery pass when `recover` (pass 1 kept fewer
+        than 20 inliers), then pass 2 and the step's outputs."""
+        valid = slc.max_dist > 0
+        n_inl1, R1p, t1p = p.n_inl1, p.R1, p.t1
         # recovery pass (ORBmatcher.cc:1600-1616, TrackPreviousFrame): from
         # the un-predicted previous pose, over every valid point
-        if bool(r1.n_inliers < 20):
-            rw = self._match_pass(orthonormalize(R_prev), t_prev, slc, valid,
-                                  feats, xy_un, radius_mult=25.0, nn_ratio=0.9,
+        if recover:
+            rw = self._match_pass(orthonormalize(p.R_prev), p.t_prev, slc, valid,
+                                  p.feats, p.xy_un, radius_mult=25.0, nn_ratio=0.9,
                                   n_rounds=2).res
-            use_wide = rw.n_inliers > r1.n_inliers
+            use_wide = rw.n_inliers > n_inl1
             n_inl1 = torch.where(use_wide, rw.n_inliers, n_inl1)
             R1p = torch.where(use_wide, rw.R, R1p)
             t1p = torch.where(use_wide, rw.t, t1p)
         # accept pass 1 only if it converged on enough inliers
         acc1 = n_inl1 >= 10
-        R1 = torch.where(acc1, R1p, R0)
-        t1 = torch.where(acc1, t1p, t0)
+        R1 = torch.where(acc1, R1p, p.R0)
+        t1 = torch.where(acc1, t1p, p.t0)
 
         # pass 2: tight search under the refined pose (TrackLocalMap)
-        p2 = self._match_pass(R1, t1, slc, valid, feats, xy_un,
+        p2 = self._match_pass(R1, t1, slc, valid, p.feats, p.xy_un,
                               radius_mult=1.0, nn_ratio=0.8)
         r2 = p2.res
         inlier = r2.inliers & p2.has
@@ -232,57 +278,132 @@ class FusedStep(nn.Module):
         ).to(torch.int32)
 
         # velocity for the next frame's prediction
-        vel_R_new = r2.R @ R_prev.T
-        vel_t_new = r2.t - vel_R_new @ t_prev
+        vel_R_new = r2.R @ p.R_prev.T
+        vel_t_new = r2.t - vel_R_new @ p.t_prev
         return FusedOut(
             R=r2.R, t=r2.t, vel_R=vel_R_new, vel_t=vel_t_new,
             n_inl2=r2.n_inliers, n_inl1=n_inl1,
-            n_match2=p2.n_match, n_match1=p1.n_match,
-            feat_bind=feat_bind, flags=flags, feats=feats, xy_un=xy_un,
+            n_match2=p2.n_match, n_match1=p.n_match1,
+            feat_bind=feat_bind, flags=flags, feats=p.feats, xy_un=p.xy_un,
         )
+
+    def forward(self, image_u8, R_prev, t_prev, vel_R, vel_t, has_vel,
+                slc: MapSlice) -> FusedOut:
+        """The whole step, eagerly: the three segments with the two host
+        reads between them (every level's fast-path flag in one transfer,
+        then the recovery test)."""
+        det = self.detect(image_u8)
+        ok = det.fast_ok.tolist()
+        picks = [self.pick(k, s, c, o)
+                 for k, (s, c, o) in enumerate(zip(det.scores, det.cands, ok))]
+        p = self.pass1(det, picks, R_prev, t_prev, vel_R, vel_t, has_vel, slc)
+        return self.pass2(p, slc, bool(p.n_inl1 < 20))
 
 
 class FusedContext:
     """Handle on the device-resident tracking state: pose, motion-model
-    velocity and local-map slice, fed forward from one step to the next."""
+    velocity and local-map slice, fed forward from one step to the next.
+
+    The state lives in fixed buffers that are written in place, never
+    rebound: on a card the step runs as captured programs
+    (utils/program.py) that read and write them at fixed addresses. The
+    step's segments are programs of their own, cut where the host reads:
+    `detect` (the frame copied in), one `pick` per level in its fast and
+    slow variants, `pass1`, and `pass2` with and without the recovery pass,
+    which ends by writing the new pose and velocity into the state. A frame
+    is 3 + (levels) replays, the frame copied in and the outputs copied out;
+    `capture` captures every variant ahead of the first frame.
+    """
 
     def __init__(self, cfg: SlamConfig, n_map: int = MAX_SLICE, device=None):
         self.cfg = cfg
         self.n_map = n_map
-        self.device = resolve_device(device)
-        self.step = FusedStep(cfg, n_map).to(self.device)
-        self.R = None
-        self.t = None
-        self.vel_R = torch.eye(3, device=self.device)
-        self.vel_t = torch.zeros(3, device=self.device)
-        self._true = torch.tensor(True, device=self.device)
-        self._false = torch.tensor(False, device=self.device)
-        self.has_vel = self._false
-        self.slice = None
+        self.device = dev = resolve_device(device)
+        self.step = FusedStep(cfg, n_map).to(dev)
+        self.R = torch.eye(3, device=dev)
+        self.t = torch.zeros(3, device=dev)
+        self.vel_R = torch.eye(3, device=dev)
+        self.vel_t = torch.zeros(3, device=dev)
+        self.has_vel = torch.zeros((), dtype=torch.bool, device=dev)
+        z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=dev)
+        self._slice = MapSlice(xyz=z(n_map, 3), normal=z(n_map, 3), min_dist=z(n_map),
+                               max_dist=z(n_map), desc=z(n_map, 32, dt=torch.uint8),
+                               n_obs=z(n_map))
+        # host flags: the state buffers hold a pose / a slice
+        self._has_pose = False
+        self._has_slice = False
         # host metadata of the slice rows
         self.slice_ids = np.zeros(0, np.int64)   # map-point slot per row
         self.slice_gen = np.zeros(0, np.int32)   # slot generation at refresh
         # bumped whenever the host overwrites the device-resident pose
         self.epoch = 0
+        # the last step's host reads: every level's fast-path flag, pass 1's
+        # inlier count (the recovery test)
+        self.last_fast_ok = None
+        self.last_pass1_inliers = None
+        # the step's programs; the picks write one level's selection into
+        # fixed buffers, so either variant feeds the same pass-1 program
+        self._picks_out = [(z(q, dt=torch.int64), z(q, dt=torch.bool))
+                           for _, q in self.step.plan]
+        self._detect = Program(lambda v, img: self.step.detect(img), dev, "detect",
+                               copy_in=True)
+        self._pick = [Program(functools.partial(self._pick_into, k), dev, f"pick{k}")
+                      for k in range(len(self.step.plan))]
+        self._pass1 = Program(lambda v, *a: self.step.pass1(*a), dev, "pass1")
+        self._pass2 = Program(self._finish, dev, "pass2", copy_out=True)
+
+    def _pick_into(self, k, fast_ok, score, cand):
+        idx, valid = self.step.pick(k, score, cand, fast_ok)
+        self._picks_out[k][0].copy_(idx)
+        self._picks_out[k][1].copy_(valid)
+
+    def _finish(self, recover, p, slc, R, t, vel_R, vel_t, has_vel) -> FusedOut:
+        out = self.step.pass2(p, slc, recover)
+        R.copy_(out.R)
+        t.copy_(out.t)
+        vel_R.copy_(out.vel_R)
+        vel_t.copy_(out.vel_t)
+        # the motion model stays off when the settings disable it
+        if self.cfg.use_motion_model:
+            has_vel.fill_(True)
+        return out
 
     @property
     def ready(self) -> bool:
-        return self.R is not None and self.slice is not None
+        return self._has_pose and self._has_slice
+
+    @property
+    def slice(self) -> MapSlice | None:
+        """The slice buffers, None until a slice is loaded."""
+        return self._slice if self._has_slice else None
 
     def set_pose(self, R, t, velocity=None):
         """(Re)enter the tracking step from a host pose (and velocity)."""
         self.epoch += 1
-        self.R, self.t = pose_from_numpy(R, t, self.device)
+        for dst, src in zip((self.R, self.t), pose_from_numpy(R, t, self.device)):
+            dst.copy_(src)
         if velocity is not None:
-            self.vel_R, self.vel_t = pose_from_numpy(*velocity, self.device)
-        self.has_vel = self._true if velocity is not None else self._false
+            for dst, src in zip((self.vel_R, self.vel_t),
+                                pose_from_numpy(*velocity, self.device)):
+                dst.copy_(src)
+        self.has_vel.fill_(velocity is not None)
+        self._has_pose = True
 
     def clear_velocity(self):
-        self.has_vel = self._false
+        self.has_vel.fill_(False)
+
+    def load_slice(self, slc: MapSlice):
+        """Copy a local-map slice of `n_map` rows into the slice buffers."""
+        for name, dst, src in zip(MapSlice._fields, self._slice, slc):
+            if src.shape != dst.shape:
+                raise ValueError(f"slice {name}: {tuple(src.shape)}, the step holds "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+        self._has_slice = True
 
     def set_slice(self, packed: np.ndarray):
         """Upload a packed (M, 17) local-map slice."""
-        self.slice = slice_from_packed(packed, self.device)
+        self.load_slice(slice_from_packed(packed, self.device))
 
     def refresh_slice(self, st, pts: np.ndarray):
         """Build the slice of map points `pts` from the host map (one
@@ -297,19 +418,53 @@ class FusedContext:
 
     def invalidate(self):
         self.epoch += 1
-        self.R = None
-        self.slice = None
+        self._has_pose = False
+        self._has_slice = False
+
+    def _picks(self, det, ok):
+        for k, (prog, score, cand) in enumerate(zip(self._pick, det.scores, det.cands)):
+            prog.run(ok[k], score, cand)
 
     @torch.no_grad()
     def track(self, image_u8) -> FusedOut:
-        """Run one step on a (H, W) uint8 frame (host array or tensor; a
-        tensor already on the device is not copied)."""
-        img = upload(image_u8, self.device)
-        out = self.step(img, self.R, self.t, self.vel_R, self.vel_t,
-                        self.has_vel, self.slice)
-        self.R, self.t = out.R, out.t
-        self.vel_R, self.vel_t = out.vel_R, out.vel_t
-        # the motion model stays off when the settings disable it
-        if self.cfg.use_motion_model:
-            self.has_vel = self._true
-        return out
+        """Run one step on a (H, W) uint8 frame (host array or tensor), from
+        the state buffers, and write the new pose and velocity into them.
+        The outputs are copies: the next step does not overwrite them."""
+        img = (image_u8 if isinstance(image_u8, torch.Tensor)
+               else torch.from_numpy(np.ascontiguousarray(image_u8)))
+        det = self._detect.run(None, img)
+        # host read 1: every level's fast-path flag, in one transfer
+        self.last_fast_ok = det.fast_ok.tolist()
+        self._picks(det, self.last_fast_ok)
+        p1 = self._pass1.run(None, det, self._picks_out, self.R, self.t, self.vel_R,
+                             self.vel_t, self.has_vel, self._slice)
+        # host read 2: the recovery test
+        self.last_pass1_inliers = int(p1.n_inl1)
+        return self._pass2.run(self.last_pass1_inliers < 20, p1, self._slice, self.R,
+                               self.t, self.vel_R, self.vel_t, self.has_vel)
+
+    @torch.no_grad()
+    def capture(self):
+        """Capture every program of the step and every variant (both arms of
+        both host tests) ahead of the first frame, as the reference compiles
+        its step before live frames. The chain runs on a blank frame; the
+        state buffers are put back as they were. On the CPU the programs run
+        eagerly and nothing is captured."""
+        cfg = self.cfg
+        state = (self.R, self.t, self.vel_R, self.vel_t, self.has_vel)
+        saved = [x.clone() for x in state]
+        det = self._detect.run(
+            None, torch.zeros((cfg.height, cfg.width), dtype=torch.uint8))
+        for ok in (False, True):
+            self._picks(det, [ok] * len(self._pick))
+        p1 = self._pass1.run(None, det, self._picks_out, self.R, self.t, self.vel_R,
+                             self.vel_t, self.has_vel, self._slice)
+        for recover in (False, True):
+            self._pass2.capture(recover, p1, self._slice, *state)
+        for dst, src in zip(state, saved):
+            dst.copy_(src)
+
+    @property
+    def programs(self) -> list:
+        """Every program of the step, in the order a frame runs them."""
+        return [self._detect, *self._pick, self._pass1, self._pass2]

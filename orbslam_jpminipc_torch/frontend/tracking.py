@@ -362,7 +362,7 @@ class Tracker:
         rv[:n] = True
         n_obs = np.zeros(M, np.float32)
         n_obs[:n] = (st.mp_obs_kf[pts] >= 0).sum(axis=1)
-        self.fused.slice = slice_kernel(self.dmap, ids, rv, n_obs)
+        self.fused.load_slice(slice_kernel(self.dmap, ids, rv, n_obs))
         self.fused.slice_ids = pts.astype(np.int64)
         self.fused.slice_gen = st.mp_gen[pts].copy()
 

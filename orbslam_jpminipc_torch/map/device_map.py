@@ -24,6 +24,7 @@ from ..ops import matching
 from ..solvers import ba
 from ..utils.device import resolve_device
 from ..utils.host import upload
+from ..utils.program import Program
 
 TRI_CANDS = 512   # per-neighbor triangulation candidate capacity
 FUSE_CANDS = 256  # per-target fuse match capacity
@@ -222,14 +223,25 @@ def tri_kernel(dm: DeviceMap, kf1, sel, has1, has2, valid2_extra, K4, sigma2, sc
             torch.take_along_dim(xw, order[..., None], dim=1))
 
 
+def local_ba_program(device) -> Program:
+    """A local-BA LM stage as a captured program, one variant per
+    iteration count (the reference jits its local BA per static schedule):
+    the problem is copied into the program's buffers at the mapper's fixed
+    capacities, and the result copied out."""
+    return Program(lambda iterations, prob: ba.bundle_adjust(prob, iterations=iterations),
+                   resolve_device(device), "local_ba", copy_in=True, copy_out=True)
+
+
 def local_ba_kernel(dm: DeviceMap, kf_R, kf_t, kf_fixed, points, point_valid,
                     obs_kf, obs_pt, obs_feat, obs_src_kf, obs_valid, K4, inv_sigma2,
-                    iterations: int = 5) -> ba.BAResult:
+                    iterations: int = 5, program: Program | None = None) -> ba.BAResult:
     """ONE local-BA LM stage with observation pixels and weights gathered
     from the mirror (obs_uv = kf_xy[src_kf, feat]). The reference's
     5 -> erase -> 10 schedule (Optimizer.cc:450-494) runs as two calls with
     the host erase between them. Pose and point arguments may be host
-    arrays or tensors already on the device (a first stage's result)."""
+    arrays or tensors already on the device (a first stage's result). The
+    uploads and gathers run first; the LM itself runs as `program`
+    (`local_ba_program`) when given, else eagerly."""
     put = lambda a: a if isinstance(a, torch.Tensor) else dm.put(a)
     src = dm.put(obs_src_kf).to(torch.int64)
     feat = dm.put(obs_feat).to(torch.int64)
@@ -242,6 +254,8 @@ def local_ba_kernel(dm: DeviceMap, kf_R, kf_t, kf_fixed, points, point_valid,
         obs_uv=dm.kf_xy[src, feat], obs_w=inv_sigma2[lv],
         obs_valid=put(obs_valid), K4=dm.put(K4),
     )
+    if program is not None:
+        return program.run(iterations, prob)
     return ba.bundle_adjust(prob, iterations=iterations)
 
 

@@ -13,7 +13,9 @@ the reference's answer:
     descending `torch.sort` followed by a slice;
   * the fast/slow candidate path (`lax.cond` per level) needs one flag per
     level on the host: `extract` reads all levels' flags in one transfer
-    and runs the exact slow path only for levels that need it.
+    and runs the exact slow path only for levels that need it. Its halves
+    (`detect` up to the flags, `pick` per level, `describe` after) are the
+    segments the WORKING step captures as programs (fused_track.py).
 
 With `use_harris_score` (the settings' `ORBextractor.nScoreType: 0`) the
 selected corners' `response` is their Harris response
@@ -153,6 +155,71 @@ def _select_level(img: torch.Tensor, quota: int, fast_th: float,
     return _level_xy(idx, img.shape[1]), resp.reshape(-1)[idx], valid
 
 
+class Detection(NamedTuple):
+    """The first half of an extraction, up to the per-level fast-path flags:
+    every level with a quota, its score map and its cell candidates."""
+
+    levels: list          # (H_l, W_l) float32 pyramid levels
+    scores: list          # (H_l, W_l) float32 score maps
+    cands: list           # _Candidates per level
+    fast_ok: torch.Tensor  # (n,) bool: the candidates of level l fill its quota
+
+
+def level_plan(n_features: int, n_levels: int, scale_factor: float) -> list[tuple[int, int]]:
+    """(level, quota) of every pyramid level with a feature quota."""
+    quotas = features_per_level(n_features, n_levels, scale_factor)
+    return [(lvl, q) for lvl, q in enumerate(quotas) if q > 0]
+
+
+def detect(image: torch.Tensor, n_features: int = 1000, n_levels: int = 8,
+           scale_factor: float = 1.2, fast_th: float = 20.0, fast_min_th: float = 7.0,
+           cell: int = 32) -> Detection:
+    """Pyramid, FAST (one kernel launch on the card) and every level's cell
+    candidates, with no host read."""
+    levels = pyramid.build_pyramid(image, n_levels, scale_factor)
+    plan = level_plan(n_features, n_levels, scale_factor)
+    imgs = [levels[lvl] for lvl, _ in plan]
+    # every level's score map in one call: one kernel launch on the card
+    scores = (fast.level_scores(imgs, fast_th, fast_min_th, EDGE_THRESHOLD, cell)
+              if plan else [])
+    cands = [_cell_candidates(s, quota, cell) for s, (_, quota) in zip(scores, plan)]
+    return Detection(imgs, scores, cands, torch.stack([c.fast_ok for c in cands]))
+
+
+def pick(score: torch.Tensor, quota: int, cand: _Candidates, fast_ok: bool, cell: int = 32):
+    """One level's selection, by the path its host-read flag names:
+    (flat pixel index (quota,), valid (quota,))."""
+    return _pick(score, quota, cell, cand, fast_ok)
+
+
+def describe(det: Detection, picks, n_features: int = 1000, n_levels: int = 8,
+             scale_factor: float = 1.2, use_harris_score: bool = False) -> Features:
+    """The second half: keypoints, IC angles and descriptors of the picked
+    pixels, `picks` holding one level's (index, valid) each."""
+    xys, lvls, resps, valids, p31, p37 = [], [], [], [], [], []
+    crop = orb.PATCH_RADIUS - orb.HALF_PATCH_SIZE
+    plan = level_plan(n_features, n_levels, scale_factor)
+    for (lvl, quota), img, score, (idx, valid) in zip(plan, det.levels, det.scores, picks):
+        xy = _level_xy(idx, img.shape[1])
+        # round the blur to integer intensities (cv2's uint8 blur)
+        blurred = torch.round(orb.gaussian_blur_7x7_sigma2(img))
+        both = orb.gather_patches_multi(torch.stack([img, blurred]), xy, orb.PATCH_RADIUS)
+        p31.append(both[:, 0, crop:-crop, crop:-crop])
+        p37.append(both[:, 1])
+        xys.append(xy * float(np.float32(scale_factor ** lvl)))
+        lvls.append(torch.full((quota,), lvl, dtype=torch.int32, device=img.device))
+        resp = fast.harris_score_map(img) if use_harris_score else score
+        resps.append(resp.reshape(-1)[idx])
+        valids.append(valid)
+
+    angle = orb.ic_angle_from_patches(torch.cat(p31))
+    desc = orb.descriptors_from_patches(torch.cat(p37), angle)
+    return Features(
+        xy=torch.cat(xys), level=torch.cat(lvls), angle=angle,
+        response=torch.cat(resps), desc=desc, valid=torch.cat(valids),
+    )
+
+
 def extract(
     image: torch.Tensor,
     n_features: int = 1000,
@@ -164,36 +231,10 @@ def extract(
     use_harris_score: bool = False,
 ) -> Features:
     """Extract ORB features from a grayscale float32 (H, W) image in [0, 255]."""
-    levels = pyramid.build_pyramid(image, n_levels, scale_factor)
-    quotas = features_per_level(n_features, n_levels, scale_factor)
-    work = [(lvl, img, quota) for lvl, (img, quota) in enumerate(zip(levels, quotas))
-            if quota > 0]
-    # every level's score map in one call: one kernel launch on the card
-    scores = (fast.level_scores([img for _, img, _ in work], fast_th, fast_min_th,
-                                EDGE_THRESHOLD, cell) if work else [])
-    cands = [_cell_candidates(s, quota, cell) for s, (_, _, quota) in zip(scores, work)]
+    det = detect(image, n_features, n_levels, scale_factor, fast_th, fast_min_th, cell)
+    plan = level_plan(n_features, n_levels, scale_factor)
     # one device->host transfer for every level's fast-path flag
-    fast_ok = torch.stack([c.fast_ok for c in cands]).tolist()
-
-    xys, lvls, resps, valids, p31, p37 = [], [], [], [], [], []
-    crop = orb.PATCH_RADIUS - orb.HALF_PATCH_SIZE
-    for (lvl, img, quota), score, cand, ok in zip(work, scores, cands, fast_ok):
-        idx, valid = _pick(score, quota, cell, cand, ok)
-        xy = _level_xy(idx, img.shape[1])
-        # round the blur to integer intensities (cv2's uint8 blur)
-        blurred = torch.round(orb.gaussian_blur_7x7_sigma2(img))
-        both = orb.gather_patches_multi(torch.stack([img, blurred]), xy, orb.PATCH_RADIUS)
-        p31.append(both[:, 0, crop:-crop, crop:-crop])
-        p37.append(both[:, 1])
-        xys.append(xy * float(np.float32(scale_factor ** lvl)))
-        lvls.append(torch.full((quota,), lvl, dtype=torch.int32, device=image.device))
-        resp = fast.harris_score_map(img) if use_harris_score else score
-        resps.append(resp.reshape(-1)[idx])
-        valids.append(valid)
-
-    angle = orb.ic_angle_from_patches(torch.cat(p31))
-    desc = orb.descriptors_from_patches(torch.cat(p37), angle)
-    return Features(
-        xy=torch.cat(xys), level=torch.cat(lvls), angle=angle,
-        response=torch.cat(resps), desc=desc, valid=torch.cat(valids),
-    )
+    ok = det.fast_ok.tolist()
+    picks = [pick(s, quota, c, o, cell)
+             for (_, quota), s, c, o in zip(plan, det.scores, det.cands, ok)]
+    return describe(det, picks, n_features, n_levels, scale_factor, use_harris_score)

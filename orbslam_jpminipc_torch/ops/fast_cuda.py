@@ -15,7 +15,9 @@ plain C interface (for sm_90a, into build/torch_kernels/ under the checkout,
 named by a hash of the source and flags) and loaded with ctypes. Nothing is
 built or imported from the GPU toolchain when this module is imported.
 
-`LAUNCHES` counts the kernel launches made by the two wrappers.
+`LAUNCHES` counts the kernel launches made by the two wrappers. A launch
+recorded into a captured program (utils/program.py) counts at each replay of
+that program, where the kernel runs.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from ..utils.program import count_launch
 
 LAUNCHES = 0
 
@@ -138,11 +142,15 @@ def _check_levels(levels, name: str) -> tuple:
     return tuple(shapes)
 
 
+def _count(n: int):
+    global LAUNCHES
+    LAUNCHES += n
+
+
 def _launch(levels, shapes, threshold: float, fast_th: float | None,
             border: int) -> list[torch.Tensor]:
     """One launch over `levels` (checked by the caller, which passes their
     shapes); the per-cell select runs in the kernel when `fast_th` is given."""
-    global LAUNCHES
     lib = build()
     dev = levels[0].device
     offsets, total = [], 0
@@ -169,7 +177,7 @@ def _launch(levels, shapes, threshold: float, fast_th: float | None,
     if err != 0:
         raise RuntimeError(
             f"fast_levels_launch failed: {lib.fast_error_string(err).decode()}")
-    LAUNCHES += 1
+    count_launch(_count)
     return [flat.as_strided(shape, (shape[1], 1), off) for shape, off in zip(shapes, offsets)]
 
 

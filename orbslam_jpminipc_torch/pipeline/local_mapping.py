@@ -19,11 +19,13 @@ whether a host half can run without waiting for the device.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..config import SlamConfig
 from ..frontend.frame import Frame
 from ..map import culling
-from ..map.device_map import DeviceMap, fuse_kernel, local_ba_kernel, tri_kernel
+from ..map.device_map import (DeviceMap, fuse_kernel, local_ba_kernel, local_ba_program,
+                               tri_kernel)
 from ..map.map_state import MapState
 from ..solvers import ba
 from ..utils.host import fetch_async
@@ -55,6 +57,26 @@ class LocalMapper:
         self._ba2_pending = None
         self._attrs_pending: list[int] = []
         self._attrs_inflight = None  # launched attrs awaiting writeback
+        # local BA's two LM stages (5 and 10 iterations), captured programs
+        # at the fixed capacities of build_local_ba_problem
+        self.ba_program = local_ba_program(self.dmap.device)
+
+    def capture_programs(self):
+        """Capture both local-BA stages ahead of the first keyframe, on a
+        problem of the fixed capacities with nothing to solve (on the CPU
+        nothing is captured)."""
+        cfg = self.cfg
+        K, P, O = cfg.local_ba_kf + cfg.local_ba_fixed, cfg.local_ba_points, cfg.local_ba_obs
+        dev = self.dmap.device
+        z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=dev)
+        prob = ba.BAProblem(
+            kf_R=torch.eye(3, device=dev).repeat(K, 1, 1), kf_t=z(K, 3),
+            kf_fixed=torch.ones(K, dtype=torch.bool, device=dev), points=z(P, 3),
+            point_valid=z(P, dt=torch.bool), obs_kf=z(O, dt=torch.int64),
+            obs_pt=z(O, dt=torch.int64), obs_uv=z(O, 2), obs_w=z(O),
+            obs_valid=z(O, dt=torch.bool), K4=self.dmap.put(cfg.K4))
+        for iterations in (5, 10):
+            self.ba_program.capture(iterations, prob)
 
     # ------------------------------------------------------------------
 
@@ -602,6 +624,7 @@ class LocalMapper:
             prob.point_valid, prob.obs_kf, prob.obs_pt, obs_feat,
             obs_srckf, prob.obs_valid, prob.K4,
             self.cfg.inv_sigma2.astype(np.float32), iterations=5,
+            program=self.ba_program,
         )
         # snapshot generations: points may be culled by other stages
         # before the writeback; never write into a recycled slot
@@ -631,6 +654,7 @@ class LocalMapper:
             prob.point_valid, prob.obs_kf, prob.obs_pt, obs_feat,
             obs_srckf, obs_valid2, prob.K4,
             self.cfg.inv_sigma2.astype(np.float32), iterations=10,
+            program=self.ba_program,
         )
         self._ba2_pending = (kf, prob, all_kfs, pts, gens, obs_src, fetch_async(*res), res1)
 

@@ -84,6 +84,7 @@ class Slam:
         self.pending: list[tuple[int, list[str]]] = []
         self._inlier_peak = 0.0
         self._last_result: tuple[TrackState, Frame | None] = (TrackState.NO_IMAGES_YET, None)
+        self._warming = False  # warmup() holds off the LOST auto-reset
 
     # ------------------------------------------------------------------
 
@@ -144,7 +145,7 @@ class Slam:
         if frame is not None and frame.R is not None:
             self.trajectory.append((timestamp, frame.R.copy(), frame.t.copy()))
         n_kf = int(self.map.kf_valid.sum())
-        if state == TrackState.LOST and 0 < n_kf <= 5:
+        if state == TrackState.LOST and 0 < n_kf <= 5 and not self._warming:
             self.reset()
         self._last_result = (state, frame)
 
@@ -212,6 +213,87 @@ class Slam:
             self._run_pending_stage()
         self.mapper.drain_attrs()
         self.tracker.refresh_fused_slice()
+
+    def warmup(self):
+        """Capture every program of the steady state and of the recovery
+        paths before live frames arrive (the reference's warmup: a real-time
+        system cannot stall on a capture mid-run), then put the system back
+        as a fresh one: empty map and trajectory, frame count 0.
+
+        Two phases, as the reference's: (1) `_compile_programs`, every
+        captured program at the config's shapes; (2) a short rendered
+        sequence on the system's device driving the whole pipeline:
+        initialization, one WORKING frame, a noise frame (collapse, host
+        fallback, LOST, relocalization), then 20 steady frames with the
+        mapping stages. Phase 2 also takes every eager path's first-call
+        costs (library handles, kernel modules, the caching allocator).
+        Without `warmup()` a program is captured at its first call."""
+        self._compile_programs()
+        cfg = self.cfg
+        from ..io.dataset import SyntheticSequence
+
+        seq = SyntheticSequence(
+            n_frames=60, width=cfg.width, height=cfg.height,
+            K4=tuple(float(x) for x in cfg.K4), trajectory="xyz", seed=11,
+            device=self.device)
+        noise = np.random.default_rng(7).integers(
+            0, 256, (cfg.height, cfg.width)).astype(np.uint8)
+        self._warming = True
+        try:
+            i, fps = 0, 30.0
+            # initialization until WORKING
+            while i < 12:
+                state, _ = self.process(seq.get(i)[0], i / fps)
+                i += 1
+                if state == TrackState.WORKING:
+                    break
+            # one fused frame (arms the step), then noise: collapse, host
+            # fallback, LOST, relocalization
+            self.process(seq.get(i)[0], i / fps)
+            self.process(noise, (i + 1) / fps)
+            for j in range(i + 1, i + 4):
+                self.process(seq.get(j)[0], j / fps)
+            # steady tracking and the mapping stages
+            for j in range(i + 4, i + 24):
+                self.process(seq.get(j)[0], j / fps)
+            self.finish()
+        finally:
+            self._warming = False
+        self._restart()
+
+    def _compile_programs(self):
+        """Phase 1 of warmup(): capture the WORKING step (every segment and
+        both arms of its two host tests) and both local-BA stages at the
+        config's shapes. On the CPU nothing is captured."""
+        if self.tracker.fused is not None:
+            self.tracker.fused.capture()
+        self.mapper.capture_programs()
+
+    def _restart(self):
+        """The state of a freshly constructed system, its captured programs
+        kept: `reset()`, then the counters, draws and trackers' marks a
+        constructor starts from."""
+        cfg = self.cfg
+        self.reset()
+        self.frame_count = 0
+        self.trajectory.clear()
+        self.n_loops_closed = 0
+        self._inlier_peak = 0.0
+        self._last_result = (TrackState.NO_IMAGES_YET, None)
+        tr = self.tracker
+        tr.state = TrackState.NO_IMAGES_YET
+        tr.last_kf_frame_id = 0
+        tr.last_reloc_frame_id = -(10 ** 9)
+        tr.n_inliers = 0
+        tr.generator.manual_seed(cfg.seed)
+        tr.__dict__.pop("_slice_key", None)
+        if tr.fused is not None:
+            tr.fused.slice_ids = np.zeros(0, np.int64)
+            tr.fused.slice_gen = np.zeros(0, np.int32)
+        if self.loop_closer is not None:
+            self.loop_closer.last_loop_kf_id = -(10 ** 9)
+            self.loop_closer.generator.manual_seed(cfg.seed + 1)
+        self.tracer.reset()
 
     def reset(self):
         """Full reset (Tracking::Reset, Tracking.cc:1066-1103)."""

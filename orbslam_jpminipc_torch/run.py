@@ -65,8 +65,8 @@ def main(argv=None):
                          "%%dropped alongside fps")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-warmup", action="store_true",
-                    help="accepted for the reference's command lines and ignored: "
-                         "eager PyTorch has no programs to compile ahead")
+                    help="skip the startup capture of the system's programs "
+                         "(Slam.warmup): each is then captured at its first call")
     ap.add_argument("--viz", default=None, metavar="DIR",
                     help="live visualization: write the tracked-frame debug "
                          "image and a top-down map view to DIR every frame "
@@ -116,6 +116,10 @@ def main(argv=None):
 
     slam = Slam(cfg, vocab=vocab, enable_loop_closing=not args.no_loop_closing,
                 device=device)
+    if not args.no_warmup:
+        t_w = time.time()
+        slam.warmup()
+        print(f"warmup (program capture): {time.time() - t_w:.1f}s", file=sys.stderr)
 
     def refresh_viz(img, frame, state):
         """FramePublisher/MapPublisher refresh (src/main.cc:210-218). The

@@ -42,7 +42,11 @@ def _normalize(uv: torch.Tensor, mask: torch.Tensor):
     n = torch.clamp(torch.sum(w), min=1.0)
     mean = torch.sum(uv * w[:, None], dim=0) / n
     dev = torch.sum(torch.abs(uv - mean) * w[:, None], dim=0) / n
-    s = 1.0 / torch.clamp(dev, min=1e-9)
+    # no spread (fewer than two distinct valid points, e.g. no match at
+    # all): the reference's 1e9 scale overflows A^T A to inf, where its
+    # eigh gives NaN and torch's raises; unit scale instead. The attempt
+    # fails either way (its inliers are its mask's)
+    s = 1.0 / torch.where(dev > 0, torch.clamp(dev, min=1e-9), 1.0)
     uvn = (uv - mean) * s
     z = torch.zeros((), dtype=uv.dtype, device=uv.device)
     o = torch.ones((), dtype=uv.dtype, device=uv.device)

@@ -1,0 +1,207 @@
+"""Captured programs: the counterpart of the reference's jitted callables.
+
+The reference compiles each device function once per static shape (`jax.jit`)
+and then runs it as one program a call. A `Program` does the same on a card
+with a CUDA graph: each variant of its function (a static argument, as a
+`jax.jit` static argument or the arm of a `lax.cond`) is captured once, at its
+first call or ahead of time by `capture`, on the program's own memory pool,
+and every later call replays the graph, one launch from the host in place of
+the function's kernels. A capture that fails raises; nothing on a card runs
+the function eagerly in place of its graph. On the CPU (only when the caller
+names it, as the tests do) the function runs eagerly at every call, through
+the same copy-in and copy-out code.
+
+A graph replays the kernels of its capture on the addresses of its capture.
+So the function must read only tensors that stay where they are (its inputs,
+buffers it closes over, constant tables) and allocate everything else inside
+itself; and it must not read what it writes, because the capture's warm-up
+runs it once eagerly before the capture (library handles, constant tables and
+kernel builds happen there, not inside the capture). Inputs come two ways:
+
+* in place (`copy_in=False`): the caller passes the same tensors at every
+  call, typically another program's outputs or state buffers it owns; the
+  program checks that they are;
+* copied (`copy_in=True`): the program owns one buffer per input, allocated
+  at its first call, and copies the caller's tensors (or host tensors, staged
+  in pinned memory) into them before each replay.
+
+Outputs come back in place (the graph's own buffers, overwritten by the next
+replay: for a chain of programs within one call) or, with `copy_out=True`, as
+copies: the graph ends by packing every output into one byte buffer, and a
+call hands out views of one clone of it (one launch).
+
+A hand-written kernel's wrapper counts its launches with `count_launch`: a
+launch made while a program is captured is counted at each replay of it.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+# packed outputs start on this boundary, so every dtype can view its slot
+_ALIGN = 16
+
+# the launch counters noted by the capture in progress (see count_launch)
+_noted: list | None = None
+
+
+def count_launch(add: Callable[[int], None]):
+    """Count one launch of a hand-written kernel, where its wrapper launches
+    it: `add(n)` adds n to the wrapper's count. Outside a stream capture the
+    kernel ran: add(1) now. Inside a program's capture nothing ran yet: the
+    program keeps `add` and calls add(1) at each replay of its graph."""
+    if not torch.cuda.is_current_stream_capturing():
+        add(1)
+    elif _noted is not None:
+        _noted.append(add)
+
+
+class _Layout(NamedTuple):
+    """Where each output lies in the packed byte buffer."""
+
+    spec: pytree.TreeSpec
+    slots: tuple  # (offset, bytes, dtype, shape) per leaf
+
+
+def _pack(out):
+    """The outputs copied into one byte buffer: (buffer, layout)."""
+    leaves, spec = pytree.tree_flatten(out)
+    slots, size = [], 0
+    for x in leaves:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"a program's outputs must be tensors, got {type(x).__name__}")
+        size = -(-size // _ALIGN) * _ALIGN
+        n = x.numel() * x.element_size()
+        slots.append((size, n, x.dtype, tuple(x.shape)))
+        size += n
+    dev = leaves[0].device if leaves else torch.device("cpu")
+    buf = torch.empty(size, dtype=torch.uint8, device=dev)
+    layout = _Layout(spec, tuple(slots))
+    for view, x in zip(_views(buf, layout), leaves):
+        view.copy_(x)
+    return buf, layout
+
+
+def _views(buf: torch.Tensor, layout: _Layout) -> list:
+    return [buf[off:off + n].view(dtype).view(shape) for off, n, dtype, shape in layout.slots]
+
+
+def _unpack(buf: torch.Tensor, layout: _Layout):
+    return pytree.tree_unflatten(_views(buf, layout), layout.spec)
+
+
+class _Captured(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    out: object              # the outputs: the graph's own tensors
+    packed: tuple | None     # (buffer, layout) with copy_out
+    launches: list           # count_launch callbacks, one per kernel launch captured
+
+
+class Program:
+    """`fn(variant, *inputs)` as one CUDA graph per variant on a card, eager
+    on the CPU.
+
+    `fn` returns a tensor or a tuple, list, dict or NamedTuple of tensors
+    (or None). `variant` is any hashable value the function branches on in
+    Python; each value is a program of its own.
+    """
+
+    def __init__(self, fn, device, name: str, copy_in: bool = False,
+                 copy_out: bool = False):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.name = name
+        self.copy_in = copy_in
+        self.copy_out = copy_out
+        self._graphs: dict = {}
+        self._inputs: list | None = None   # the leaves read in place
+        self._pool = None
+
+    @property
+    def variants(self) -> tuple:
+        """The variants captured so far."""
+        return tuple(self._graphs)
+
+    def _stage(self, inputs) -> tuple:
+        """The inputs the function reads: the caller's (checked to be the same
+        tensors as at the first call, on a card), or the program's own buffers
+        with the caller's tensors copied in."""
+        leaves, spec = pytree.tree_flatten(inputs)
+        if self._inputs is None:
+            if self.copy_in:
+                self._inputs = [torch.empty(x.shape, dtype=x.dtype, device=self.device)
+                                for x in leaves]
+            else:
+                self._inputs = list(leaves)
+        own = self._inputs
+        if len(leaves) != len(own):
+            raise ValueError(f"program {self.name}: {len(leaves)} inputs, "
+                             f"{len(own)} at its first call")
+        if self.copy_in:
+            for dst, x in zip(own, leaves):
+                if x.shape != dst.shape or x.dtype != dst.dtype:
+                    raise ValueError(
+                        f"program {self.name}: input {tuple(x.shape)} {x.dtype}, its "
+                        f"buffer is {tuple(dst.shape)} {dst.dtype}")
+                if x.device.type == "cpu" and dst.is_cuda and not x.is_pinned():
+                    x = x.pin_memory()
+                dst.copy_(x, non_blocking=True)
+            return pytree.tree_unflatten(own, spec)
+        if self.device.type == "cuda" and any(a is not b for a, b in zip(leaves, own)):
+            raise ValueError(f"program {self.name} reads its inputs in place: pass the "
+                             "tensors of its first call")
+        return inputs
+
+    def run(self, variant, *inputs):
+        """One call: the outputs (the graph's own on a card, unless
+        `copy_out`). The first call of a variant on a card captures it."""
+        inputs = self._stage(inputs)
+        if self.device.type != "cuda":
+            out = self.fn(variant, *inputs)
+            if not self.copy_out:
+                return out
+            buf, layout = _pack(out)
+            return _unpack(buf.clone(), layout)
+        cap = self._graphs.get(variant)
+        if cap is None:
+            cap = self._capture(variant, inputs)
+        cap.graph.replay()
+        for add in cap.launches:
+            add(1)
+        if cap.packed is None:
+            return cap.out
+        buf, layout = cap.packed
+        return _unpack(buf.clone(), layout)
+
+    def capture(self, variant, *inputs):
+        """Capture `variant` ahead of its first call, without running it
+        (beyond the capture's eager warm-up). On the CPU: nothing."""
+        inputs = self._stage(inputs)
+        if self.device.type == "cuda" and variant not in self._graphs:
+            self._capture(variant, inputs)
+
+    def _capture(self, variant, inputs) -> _Captured:
+        global _noted
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            # warm-up: library handles, constant tables, kernel builds
+            with torch.cuda.stream(stream):
+                self.fn(variant, *inputs)
+            torch.cuda.current_stream().wait_stream(stream)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            launches = []
+            _noted = launches
+            try:
+                with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                    out = self.fn(variant, *inputs)
+                    packed = _pack(out) if self.copy_out else None
+            finally:
+                _noted = None
+        cap = _Captured(graph, out, packed, launches)
+        self._graphs[variant] = cap
+        return cap

@@ -151,6 +151,22 @@ def test_initialize_refuses_pure_rotation_like_jax():
     assert bool(got.used_h) == bool(ref.used_h)
 
 
+@pytest.mark.parametrize("n_valid", [0, 1])
+def test_initialize_without_matches_fails_like_jax(n_valid):
+    """No match, or one (a frame pair that shares nothing): the attempt
+    fails in both packages, and the port does not raise (the reference's
+    normalization scale is 1e9 there and its A^T A overflows: its eigh
+    gives NaN where torch's raises)."""
+    uv1, uv2, _ = _scene(4, False)
+    mask = np.zeros(len(uv1), bool)
+    mask[:n_valid] = True
+    ref, sets = _reference(uv1, uv2, mask, jax.random.key(4))
+    got = tinit.initialize(torch.from_numpy(sets), torch.from_numpy(uv1), torch.from_numpy(uv2),
+                           torch.from_numpy(mask), torch.from_numpy(K4))
+    assert not bool(ref.success) and not bool(got.success)
+    assert not got.good.numpy().any() and not np.asarray(ref.good).any()
+
+
 @pytest.mark.parametrize("model", ["h", "f"])
 def test_model_fit_and_score_match_jax(model):
     """Batched DLT fits and chi^2 scores on the same minimal sets: the same
