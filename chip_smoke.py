@@ -45,7 +45,17 @@ Phases (any failure raises, so the script exits non-zero):
                  and host reads by source line (sync debug mode), captured
                  against eager. The local-BA stages (5 and 10 iterations) on
                  the last keyframe's problem after 10 system fixture frames:
-                 chi2 and outlier flags against two eager runs, ms
+                 chi2 and outlier flags against two eager runs, ms. The
+                 host path's programs (extraction, frame-to-frame and
+                 local-map tracking, the relocalization candidate's two
+                 programs, the ladder rungs) are held the same way inside
+                 the reloc_async phase on Run R's inputs, and loop
+                 closing's (matchers, Sim3 refinement, essential graph)
+                 inside the loop phase on the closure's (`hold_programs`:
+                 each program's first call per variant, equal bits; the
+                 essential graph within the larger of twice the largest
+                 difference between four eager runs and 16 float32 ulps),
+                 logged as "[graphs] run_r" and "[graphs] loop"
   7. system      `Slam(cfg, vocab=None, device="cuda")` at the shipping widths,
                  after `Slam.warmup()` (timed; every phase below that builds a
                  `Slam` warms it up first, run.py included, and counts FAST
@@ -59,10 +69,15 @@ Phases (any failure raises, so the script exits non-zero):
                  each initialization frame and each fused frame. Reports ms
                  per `process` call (initialization / keyframe / other
                  frames), the tracer's stage summary, host reads per frame
-                 and peak device memory. A second, untimed system over the
-                 same frames counts host synchronisations per frame (CUDA
-                 sync debug mode) and shows how far two runs on the card
-                 agree.
+                 and peak device memory. Before it the same system, untimed,
+                 takes the same frames counting host synchronisations per
+                 frame (CUDA sync debug mode), and is put back as a fresh
+                 one (`Slam._restart`, what warmup ends with); the two runs
+                 show how far runs on the card agree. Last, the first system's map takes frames 28-32 of
+                 the sequence with each mapping stage run alone under
+                 torch.profiler (`stage_profile`): per `*_d`/`*_m` stage,
+                 ms to the end of its device work, kernels, kernel time and
+                 launches from the host.
   8. reloc_async `Slam` at the shipping widths with the 64k-word tree
                  vocabulary, twice. Run R (`enable_loop_closing=False`,
                  synchronous mapping): the 28 frames, 3 noise frames
@@ -86,8 +101,14 @@ Phases (any failure raises, so the script exits non-zero):
                  reads and synchronisations per frame by group, the
                  relocalization attempts, the keyframe database's times, the
                  batched library solves of one PnP call alone, the
+                 launches from the host and device ops of each LOST frame
+                 (torch.profiler, Run R's untimed run) per
+                 candidate tried and of one eager `solve_pnp` alone, the
                  `loop_closing` stage's ms per keyframe, and peak device
                  memory. The FAST kernel must run once on every frame.
+                 Each system runs its frames twice: first untimed under
+                 sync debug mode, then put back as a fresh one
+                 (`Slam._restart`) for the timed run.
   9. loop        a constructed loop at the shipping capacity (max_kf 256,
                  max_mp 16384, 2000 feature rows, eg_edges 2048, the 64k-word
                  vocabulary; tools/loop_scene.py builds it from a seed: 46
@@ -110,8 +131,14 @@ Phases (any failure raises, so the script exits non-zero):
                  search and the essential graph's 20 iterations; global BA's
                  20 x 64), kernels launched by the last two (torch.profiler),
                  host synchronisations by source line (none may lie inside
-                 the solvers' iterations), peak device memory. The FAST
-                 kernel is not on this phase's path.
+                 the solvers' iterations), peak device memory; the
+                 system's `_compile_programs` part by part (seconds, memory
+                 left reserved), the essential graph captured against
+                 eager (ms, kernels) and its capture alone. One warmed
+                 system makes both passes: the untimed one under sync
+                 debug mode, then, put back as a fresh one and given the
+                 scene anew, the timed one. The FAST kernel is not on this
+                 phase's path.
  10. sequence    the command line and the renderer on the card. The
                  renderer (`io/dataset.py:SyntheticSequence`, no cv2) draws
                  frames 0-27 of `xyz` seed 3 on the card, held to the
@@ -180,6 +207,7 @@ standard output is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -239,6 +267,22 @@ GRAPH_BA_CHI2_REL = 1e-3
 GRAPH_BA_FLAG_SHARE = 2e-3
 GRAPH_FLAT_WINDOW = 96
 GRAPH_BA_FRAMES = 10
+# the host path's and loop closing's programs against their eager runs on a
+# real run's inputs (Run R, the loop phase's closure): equal bits; the
+# essential graph, whose scatter-adds are atomic, leaf by leaf (s, R, t,
+# chi2) within the larger of EG_SPREAD_FACTOR times the largest difference
+# between EG_EAGER_RUNS eager runs and EG_ULPS float32 ulps of the leaf's
+# largest entry. The floor is there because the captured run rounds apart
+# from the eager ones by more than they round apart from each other: on an
+# H100 80GB HBM3 the closure's chi2 (0.00196) came 9.3e-10 and 1.4e-9 (4-6
+# ulps) from the first eager run where the eager runs spread 7.0e-10 and
+# 2.3e-10
+EG_EAGER_RUNS = 4
+EG_SPREAD_FACTOR = 2.0
+EG_ULPS = 16
+# the mapping stages profiled one call at a time after the system run, on
+# these frames of the forced-loss fixture (frames 28-32 of the sequence)
+STAGE_PROFILE_FRAMES = 5
 # the card's published peaks (NVIDIA H100 SXM data sheet) for the kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -741,6 +785,74 @@ def _launch_counts(prof, n):
             "device_ops_per_call": device / n, "device_ms_per_call": dev_us / n / 1e3}
 
 
+def hold_programs(torch, calls, tag):
+    """The captured programs against their eager runs on the inputs of a
+    real run: each call a `CallLog` kept (its first per program and
+    variant), the outputs the caller got (unchanged by the calls after it)
+    against the function run eagerly on the same inputs, equal bits; the
+    essential graph (atomic scatter-adds) within the larger of
+    EG_SPREAD_FACTOR times the largest difference between EG_EAGER_RUNS
+    eager runs and EG_ULPS float32 ulps of the leaf's largest entry, leaf
+    by leaf. Raises where one is off."""
+    from torch.utils import _pytree as pytree
+
+    leaves = pytree.tree_leaves
+    rows = []
+    for c in calls:
+        eg = c.name.startswith("essential_graph")
+        with torch.no_grad():
+            runs = [leaves(c.eager(*c.inputs)) for _ in range(EG_EAGER_RUNS if eg else 1)]
+        got = leaves(c.out)
+        kept = all(torch.equal(a, b) for a, b in zip(got, leaves(c.out_copy)))
+        equal = all(torch.equal(a, b) for a, b in zip(got, runs[0]))
+        row = {"program": c.name, "variant": repr(c.variant), "equal_bits": equal, "kept": kept}
+        ok = equal
+        if eg:
+            gap = lambda a, b: [float((x.double() - y.double()).abs().max()) for x, y in zip(a, b)]
+            spread = [max(v) for v in zip(*[gap(a, b) for a in runs for b in runs])]
+            ulps = [EG_ULPS * float(torch.finfo(torch.float32).eps) * float(x.abs().max())
+                    for x in runs[0]]
+            bound = [max(EG_SPREAD_FACTOR * e, u) for e, u in zip(spread, ulps)]
+            row.update(diff=gap(got, runs[0]), eager_spread=spread, bound=bound)
+            ok = all(d <= b for d, b in zip(row["diff"], bound))
+        row["ok"] = ok and kept
+        rows.append(row)
+    log(f"[graphs] {tag}: {len(rows)} programs captured against eager on the run's inputs: "
+        f"{json.dumps(rows)}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"[graphs] {tag}: captured programs off their eager runs: {bad}")
+    return rows
+
+
+def timed_compile(torch, slam):
+    """`Slam._compile_programs` part by part: seconds and the device memory
+    each part leaves reserved (its graph pool and input buffers), the
+    allocator's cache emptied around each."""
+    parts = {"step": slam.tracker.fused.capture, "local_ba": slam.mapper.capture_programs,
+             "host_path": slam.tracker.capture_programs}
+    if slam.loop_closer is not None:
+        parts["loop_closing"] = slam.loop_closer.capture_programs
+    out = {}
+    for name, fn in parts.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        out[name] = {"capture_s": dt, "reserved_bytes": torch.cuda.memory_reserved() - r0}
+    progs = {k: sorted(p.name for s in sets.values() for p in s.programs.values())
+             for k, sets in (("host_path", slam.tracker.programs),
+                             ("loop_closing", slam.loop_closer.programs
+                              if slam.loop_closer is not None else {}))}
+    progs["host_path"] += [p.name for p in slam.tracker.extraction.all_programs]
+    log(f"[graphs] _compile_programs by part: {json.dumps(out)}; programs {json.dumps(progs)}")
+    return {"parts": out, "programs": progs}
+
+
 def _low_texture_frame(image, window=GRAPH_FLAT_WINDOW):
     """A mostly flat frame: mid-grey, with one `window` x `window` square of
     a fixture frame at its centre. Its corners crowd into a few cells, so
@@ -1004,14 +1116,20 @@ def phase_system(torch, fast_cuda, smi):
 
     warmup_s = []
 
-    def make():
-        slam = Slam(cfg, vocab=None, device="cuda")
-        # the programs captured and the first-call costs taken before the
-        # first frame; the reference's minimal sets injected after it
-        t0 = time.perf_counter()
-        slam.warmup()
-        torch.cuda.synchronize()
-        warmup_s.append(time.perf_counter() - t0)
+    def make(slam=None):
+        """A warmed system, or `slam` put back as a fresh one (`_restart`,
+        what `Slam.warmup` ends with: its programs kept)."""
+        if slam is None:
+            slam = Slam(cfg, vocab=None, device="cuda")
+            # the programs captured and the first-call costs taken before
+            # the first frame; the reference's minimal sets injected after it
+            t0 = time.perf_counter()
+            slam.warmup()
+            torch.cuda.synchronize()
+            warmup_s.append(time.perf_counter() - t0)
+        else:
+            slam._restart()
+            slam.mapper.__dict__.pop("process", None)
         sets = iter(torch.as_tensor(x).cuda() for x in sf["init_sets"])
         slam.tracker.sampler = lambda mask, n_hyp: next(sets)
         kf_events = []
@@ -1064,8 +1182,12 @@ def phase_system(torch, fast_cuda, smi):
         torch.cuda.synchronize()
         return rows
 
-    # the main path: timed, with the kernel's launch count from 0
+    # first, untimed, the host synchronisations per frame; then the same
+    # system, put back as a fresh one, takes the main path: timed, with the
+    # kernel's launch count from 0
     slam, kf_events = make()
+    rows2 = drive(slam, kf_events, count_syncs=True)
+    slam, kf_events = make(slam)
     tracer = get_tracer()
     tracer.reset()
     torch.cuda.synchronize()
@@ -1081,12 +1203,6 @@ def phase_system(torch, fast_cuda, smi):
             f"{TrackState(r['ref_state']).name}) {r['ms']:.1f} ms, inl {r['n_inliers']} "
             f"(ref {r['ref_n_inliers']}), kf {r['n_keyframes']}, pts {r['n_points']}, "
             f"dcentre {r['dcentre']}, fetches {r['fetches']}, FAST {r['fast_launches']}")
-
-    # a second, untimed system over the same frames counts the host
-    # synchronisations per frame
-    slam2, kf_events2 = make()
-    rows2 = drive(slam2, kf_events2, count_syncs=True)
-    del slam2
     for r, r2 in zip(rows, rows2):
         r["syncs"] = r2["syncs"]
     rerun = {
@@ -1120,7 +1236,7 @@ def phase_system(torch, fast_cuda, smi):
     for k, g in groups.items():
         log(f"[system] {smi}: {k} frames ms per process: {json.dumps(g)}")
     log(f"[system] {smi}: host synchronisations per frame (sync debug mode, untimed "
-        f"second run) "
+        f"run) "
         f"{json.dumps(res['syncs_per_frame'])}; batched reads per frame "
         f"{json.dumps(res['fetches_per_frame'])}")
     log(f"[system] {smi}: peak device memory {peak} bytes; Slam.warmup "
@@ -1129,7 +1245,7 @@ def phase_system(torch, fast_cuda, smi):
     log(f"[system] outcome: states equal {states_eq}/{n}, keyframes {n_kf} (ref {ref_kf}), "
         f"points {n_pts} (ref {ref_pts}), max centre diff {res['max_dcentre']}, "
         f"kf ATE {ate:.6f} (ref {ref_ate:.6f}), FAST launches {launches}")
-    log(f"[system] second run vs the first: states equal {rerun['states_equal']}/{n}, "
+    log(f"[system] the untimed run vs the timed one: states equal {rerun['states_equal']}/{n}, "
         f"max centre diff {rerun['max_dcentre']}")
 
     if states_eq < SYS_STATES_MIN:
@@ -1150,7 +1266,53 @@ def phase_system(torch, fast_cuda, smi):
                if (r["kind"] == "init" or r["fused"]) and r["fast_launches"] != 1]
     if no_fast or not any(r["fused"] for r in rows):
         raise AssertionError(f"FAST kernel not launched exactly once on frames {no_fast}")
+    res["mapping_stages"] = stage_profile(torch, slam, smi)
     return res
+
+
+def stage_profile(torch, slam, smi):
+    """The mapping stages one call at a time under torch.profiler, on the
+    system run's map fed the next STAGE_PROFILE_FRAMES frames of the
+    sequence (the forced-loss fixture's frames 28 on, each a keyframe
+    here): per stage, host ms to the end of its device work, the device's
+    kernels and their time, and the host's launches. Where a keyframe
+    frame's mapping time goes: device launches or host numpy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rf = dict(np.load(RELOC_FIXTURE))
+    m = slam.mapper
+    run_stage = m.run_stage
+    by = {}
+
+    def profiled(kf, stage):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_stage(kf, stage)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        c = _launch_counts(prof, 1)
+        acc = by.setdefault(stage, {"calls": 0, "host_ms": 0.0, "device_ms": 0.0,
+                                    "kernels": 0, "host_launches": 0})
+        acc["calls"] += 1
+        acc["host_ms"] += ms
+        acc["device_ms"] += c["device_ms_per_call"]
+        acc["kernels"] += c["device_ops_per_call"]
+        acc["host_launches"] += c["host_launches_per_call"]
+
+    m.run_stage = profiled
+    try:
+        for img, ts in zip(rf["images"][:STAGE_PROFILE_FRAMES],
+                           rf["seq_timestamps"][28:28 + STAGE_PROFILE_FRAMES]):
+            slam.process(torch.as_tensor(img).cuda(), float(ts))
+        slam.finish()
+    finally:
+        del m.run_stage
+    rows = {k: {"calls": v["calls"], **{f: v[f] / v["calls"] for f in v if f != "calls"}}
+            for k, v in by.items()}
+    for k, v in rows.items():
+        log(f"[system] {smi}: mapping stage {k} per call, profiled alone: {json.dumps(v)}")
+    return rows
 
 
 def _library_solves(torch):
@@ -1184,6 +1346,32 @@ def _library_solves(torch):
     }
 
 
+def _pnp_launches(torch):
+    """One eager `solve_pnp` (256 hypotheses over 1000 points, 600 of them
+    on a pose) under torch.profiler: the relocalization candidate's eager
+    part, its launches from the host and device ops counted apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from orbslam_jpminipc_torch.solvers import pnp
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xw = torch.rand((1000, 3), generator=gen, device="cuda") * 2 - 1 + torch.tensor(
+        [0.0, 0.0, 4.0], device="cuda")
+    uv = 500.0 * xw[:, :2] / xw[:, 2:] + torch.tensor([320.0, 240.0], device="cuda")
+    mask = torch.arange(1000, device="cuda") < 600
+    uv = torch.where(mask[:, None], uv, uv + 40.0)
+    K4 = torch.tensor([500.0, 500.0, 320.0, 240.0], device="cuda")
+    err = torch.full((1000,), 5.991, device="cuda")
+    call = lambda: pnp.solve_pnp(pnp.sample_minimal_sets(mask, pnp.N_HYP, gen), xw, uv, mask,
+                                 K4, err)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return _launch_counts(prof, 1)
+
+
 def _kf_ate_seq(slam, timestamps, gt_R, gt_t):
     from orbslam_jpminipc_torch.io.trajectory import ate_rmse
 
@@ -1202,6 +1390,7 @@ def phase_reloc_async(torch, fast_cuda, smi):
     from orbslam_jpminipc_torch.frontend.tracking import TrackState
     from orbslam_jpminipc_torch.pipeline.system import Slam
     from orbslam_jpminipc_torch.utils import host
+    from orbslam_jpminipc_torch.utils.program import CallLog
     from orbslam_jpminipc_torch.utils.tracing import StageQueueAudit, get_tracer
     from orbslam_jpminipc_torch.vocab.vocabulary import load_vocabulary
 
@@ -1229,19 +1418,33 @@ def phase_reloc_async(torch, fast_cuda, smi):
         f"{time.perf_counter() - t0:.2f} s")
     solves = _library_solves(torch)
     log(f"[reloc_async] {smi}: library solves alone, ms per call: {json.dumps(solves)}")
+    pnp_alone = _pnp_launches(torch)
+    log(f"[reloc_async] {smi}: one eager solve_pnp (256 hypotheses, 1000 points) under the "
+        f"profiler: {json.dumps(pnp_alone)}")
 
     warmup_s = []
 
-    def make(async_mapping, inject_pnp):
-        cfg = SlamConfig(**dict(meta["config"], async_mapping=async_mapping))
-        # Run A is the default constructor call (loop closing on); Run R
-        # keeps one path without the "loop" stage's work covered
-        slam = (Slam(cfg, vocab=vocab) if async_mapping
-                else Slam(cfg, vocab=vocab, enable_loop_closing=False))
-        t0 = time.perf_counter()
-        slam.warmup()
-        torch.cuda.synchronize()
-        warmup_s.append(time.perf_counter() - t0)
+    def make(async_mapping, inject_pnp, slam=None):
+        """A warmed system, or `slam` put back as a fresh one (`_restart`,
+        what `Slam.warmup` ends with: its programs kept)."""
+        if slam is None:
+            cfg = SlamConfig(**dict(meta["config"], async_mapping=async_mapping))
+            # Run A is the default constructor call (loop closing on); Run R
+            # keeps one path without the "loop" stage's work covered
+            slam = (Slam(cfg, vocab=vocab) if async_mapping
+                    else Slam(cfg, vocab=vocab, enable_loop_closing=False))
+            t0 = time.perf_counter()
+            slam.warmup()
+            torch.cuda.synchronize()
+            warmup_s.append(time.perf_counter() - t0)
+        else:
+            slam._restart()
+            # the last run's wrappers off (the queue audit's, the keyframe
+            # hook's)
+            for name in ("_run_pending_stage", "_on_new_keyframe"):
+                slam.__dict__.pop(name, None)
+            slam.tracker.on_new_keyframe = slam._on_new_keyframe
+            slam.mapper.__dict__.pop("insert_keyframe", None)
         isets = iter(torch.as_tensor(x).cuda() for x in rf["init_sets"])
         slam.tracker.sampler = lambda mask, n_hyp: next(isets)
         if inject_pnp:
@@ -1253,15 +1456,20 @@ def phase_reloc_async(torch, fast_cuda, smi):
                                                      insert(frame))[1]
         return slam, kf_events, events, StageQueueAudit(slam)
 
-    def drive(slam, kf_events, events, images, timestamps, count_syncs, sync_each):
+    def drive(slam, kf_events, events, images, timestamps, count_syncs, sync_each,
+              profile_lost=False):
         """Feed the frames through `Slam.process`. With `sync_each` every
         call is timed to the end of its device work; without, to its return
         only, and the device is never waited for between frames (a mapping
         program launched in one frame is still running in the next, as in
         use). With `count_syncs` every host synchronisation is recorded
         (CUDA sync debug mode), which slows the calls: that pass is not
-        timed."""
-        rows = []
+        timed. With `profile_lost` each frame that starts LOST runs under
+        torch.profiler: its launches from the host, its relocalization
+        candidates."""
+        from torch.profiler import ProfilerActivity, profile
+
+        rows, lost_prof = [], []
         torch.cuda.synchronize()
         t_run = time.perf_counter()
         orig_log = tracer.log
@@ -1272,7 +1480,11 @@ def phase_reloc_async(torch, fast_cuda, smi):
                 was = slam.tracker.state
                 fused = slam.tracker.fused_usable(slam.frame_count)
                 reads0, launches0, kf0 = host.READS, fast_cuda.LAUNCHES, len(kf_events)
-                with warnings.catch_warnings(record=True) as caught:
+                ev0 = len(events)
+                prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                        if profile_lost and was == TrackState.LOST else None)
+                with warnings.catch_warnings(record=True) as caught, \
+                        (prof if prof is not None else contextlib.nullcontext()):
                     warnings.simplefilter("always")
                     if sync_each:
                         torch.cuda.synchronize()
@@ -1287,6 +1499,10 @@ def phase_reloc_async(torch, fast_cuda, smi):
                     if sync_each:
                         torch.cuda.synchronize()
                     ms = (time.perf_counter() - t0) * 1e3
+                if prof is not None:
+                    lost_prof.append({"frame": i, "candidates": sum(
+                        e["event"] == "reloc_attempt" for e in events[ev0:]),
+                        **_launch_counts(prof, 1)})
                 sites = [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
                          if "synchroniz" in str(w.message)]
                 syncs = len(sites)
@@ -1313,7 +1529,7 @@ def phase_reloc_async(torch, fast_cuda, smi):
             wall_s = time.perf_counter() - t_run
         finally:
             del tracer.log
-        return rows, finish_ms, wall_s
+        return rows, finish_ms, wall_s, lost_prof
 
     def groups_of(rows, key, unit):
         return {k: _percentiles([r[key] for r in rows if r["kind"] == k and r[key] is not None],
@@ -1321,23 +1537,37 @@ def phase_reloc_async(torch, fast_cuda, smi):
                 for k in ("init", "keyframe", "other", "lost")}
 
     def run(name, async_mapping, inject_pnp, images, timestamps):
-        """The run timed from the kernel's launch count 0, then once more
-        untimed under CUDA sync debug mode for the synchronisations."""
-        slam, kf_events, events, audit = make(async_mapping, inject_pnp)
+        """The run untimed under CUDA sync debug mode for the
+        synchronisations, then the same system, put back as a fresh one,
+        timed from the kernel's launch count 0."""
+        # the untimed run: with the forced loss, the LOST frames profiled
+        # and the host path's programs logged, then held against their eager
+        # runs on the logged inputs
+        slam, kf_events2, events2, _ = make(async_mapping, inject_pnp)
+        with CallLog() as calls:
+            rows2, _, _, lost_prof = drive(slam, kf_events2, events2, images, timestamps, True,
+                                           sync_each=not async_mapping,
+                                           profile_lost=not async_mapping)
+            if not async_mapping:
+                # the ladder's rungs (the run's relocalization took >= 50
+                # inliers without them): from the last frame's pose against
+                # its reference keyframe
+                tr2 = slam.tracker
+                for radius, max_dist in ((10.0, 100), (3.0, 64)):
+                    tr2._reloc_refine_rung(tr2.last_frame, tr2.ref_kf, radius, max_dist)
+        programs = hold_programs(torch, calls.calls, name) if not async_mapping else None
+        del calls
+        slam, kf_events, events, audit = make(async_mapping, inject_pnp, slam)
         tracer.reset()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         fast_cuda.LAUNCHES = 0
-        rows, finish_ms, wall_s = drive(slam, kf_events, events, images, timestamps, False,
-                                        sync_each=not async_mapping)
+        rows, finish_ms, wall_s, _ = drive(slam, kf_events, events, images, timestamps, False,
+                                           sync_each=not async_mapping)
         launches = fast_cuda.LAUNCHES
         peak = torch.cuda.max_memory_allocated()
         stages = tracer.summary()
-        slam2, kf_events2, events2, _ = make(async_mapping, inject_pnp)
-        rows2, _, _ = drive(slam2, kf_events2, events2, images, timestamps, True,
-                            sync_each=not async_mapping)
-        del slam2
         # every frame's row is in the report file; here the frames around
         # initialization and loss, and the run at a glance
         for r in rows:
@@ -1349,7 +1579,7 @@ def phase_reloc_async(torch, fast_cuda, smi):
             f"{''.join({'init': 'i', 'keyframe': 'K', 'other': 'o', 'lost': 'L'}[r['kind']] for r in rows)}"
             f"; queue depth after each frame: {[r['queue_depth'] for r in rows]}")
         depth = [r["queue_depth"] for r in rows]
-        # where the second run's synchronisations were made: the source
+        # where the untimed run's synchronisations were made: the source
         # line of the call that waited, summed over each group's frames
         sync_sites = {}
         for r in rows2:
@@ -1363,7 +1593,7 @@ def phase_reloc_async(torch, fast_cuda, smi):
             "ms_per_frame": groups_of(rows, "ms", "_ms"),
             "ms_until_return": groups_of(rows, "ms_until_return", "_ms"),
             "fetches_per_frame": groups_of(rows, "fetches", ""),
-            # the second, untimed run's counts, grouped by that run's own kinds
+            # the untimed run's counts, grouped by that run's own kinds
             "syncs_per_frame": groups_of(rows2, "syncs", ""),
             "sync_sites": sync_sites,
             "keyframes_inserted": len(kf_events), "n_keyframes": slam.n_keyframes,
@@ -1378,12 +1608,24 @@ def phase_reloc_async(torch, fast_cuda, smi):
                                         "loop_"))},
             "rows": rows, "events": [e for e in events if e["event"].startswith(
                 ("reloc_", "ba_", "mapping_not_ready"))],
+            "programs": programs, "lost_frames_profiled": lost_prof,
         }
+        tried = sum(r["candidates"] for r in lost_prof)
+        if tried:
+            res["host_launches_per_candidate"] = sum(
+                r["host_launches_per_call"] for r in lost_prof if r["candidates"]) / tried
+            res["device_kernels_per_candidate"] = sum(
+                r["device_ops_per_call"] for r in lost_prof if r["candidates"]) / tried
+            log(f"[{name}] {smi}: LOST frames under the profiler (untimed run): "
+                f"{tried} candidates, {res['host_launches_per_candidate']:.1f} launches from "
+                f"the host and {res['device_kernels_per_candidate']:.1f} device ops a "
+                f"candidate, the frame's other work included; per frame "
+                f"{json.dumps(lost_prof)}")
         for k, g in res["ms_per_frame"].items():
             log(f"[{name}] {smi}: {k} frames ms per process: {json.dumps(g)}; until the call "
                 f"returned: {json.dumps(res['ms_until_return'][k])}; reads per frame "
                 f"{json.dumps(res['fetches_per_frame'][k])}; host synchronisations per frame "
-                f"(sync debug mode, untimed second run) {json.dumps(res['syncs_per_frame'][k])}")
+                f"(sync debug mode, untimed run) {json.dumps(res['syncs_per_frame'][k])}")
         log(f"[{name}] {smi}: keyframes inserted {res['keyframes_inserted']}, in the map "
             f"{res['n_keyframes']}, points {res['n_points']}; queue depth p50 "
             f"{res['queue_depth']['p50']} max {res['queue_depth']['max']}; "
@@ -1393,7 +1635,7 @@ def phase_reloc_async(torch, fast_cuda, smi):
             f"peak device memory {peak} bytes")
         for k, tally in sync_sites.items():
             top = sorted(tally.items(), key=lambda kv: -kv[1])[:10]
-            log(f"[{name}] synchronisations of the {k} frames by source line (second run, "
+            log(f"[{name}] synchronisations of the {k} frames by source line (untimed run, "
                 f"{sum(r['kind'] == k for r in rows2)} frames): {json.dumps(top)}")
         for k in ("kfdb_add", "bow_word_ids", "kfdb_query_bow", "kfdb_detect_reloc",
                   "reloc_candidate", "reloc_refine", "loop_closing", "loop_detect"):
@@ -1513,9 +1755,10 @@ def phase_reloc_async(torch, fast_cuda, smi):
         if res["upload_and_epnp_waits"]:
             raise AssertionError(f"[{name}] an upload or EPnP's index sets waited for the device: "
                                  f"{res['upload_and_epnp_waits']}")
-    log(f"[reloc_async] {smi}: Slam.warmup of the four systems "
+    log(f"[reloc_async] {smi}: Slam.warmup of the two systems "
         f"{[round(x, 2) for x in warmup_s]} s")
-    return {"library_solves_ms": solves, "run_r": res_r, "run_a": res_a, "warmup_s": warmup_s}
+    return {"library_solves_ms": solves, "solve_pnp_alone": pnp_alone, "run_r": res_r,
+            "run_a": res_a, "warmup_s": warmup_s}
 
 
 def _upload_and_epnp_waits(sync_sites):
@@ -1541,11 +1784,14 @@ def _upload_and_epnp_waits(sync_sites):
 
 # ---- the constructed loop ------------------------------------------------------
 
-def loop_system(device, vocab, warmup=False):
+def loop_system(device, vocab, warmup=False, before_warmup=None, slam=None):
     """A default-constructor `Slam(cfg, vocab=vocab)` on `device` whose map
     is the constructed loop scene the fixture names (tools/loop_scene.py
-    builds it from the seed), after `Slam.warmup()` when `warmup`. Returns
-    (slam, info, fixture arrays, meta)."""
+    builds it from the seed), after `Slam.warmup()` when `warmup`
+    (`before_warmup(slam)` first, when given); or `slam`, a system of an
+    earlier call, put back as a fresh one (`Slam._restart`, its programs
+    kept) and given the scene anew. Returns (slam, info, fixture arrays,
+    meta)."""
     sys.path.insert(0, os.path.join(REPO, "tools"))
     import loop_scene
 
@@ -1560,9 +1806,14 @@ def loop_system(device, vocab, warmup=False):
     if info["cfg"] != meta["config"]:
         raise AssertionError(f"the scene's config {info['cfg']} is not the fixture's")
     cfg = SlamConfig(**info["cfg"])
-    slam = Slam(cfg, vocab=vocab, device=device)
-    if warmup:
-        slam.warmup()
+    if slam is not None:
+        slam._restart()
+    else:
+        slam = Slam(cfg, vocab=vocab, device=device)
+        if warmup:
+            if before_warmup is not None:
+                before_warmup(slam)
+            slam.warmup()
     if slam.loop_closer is None:
         raise AssertionError("the default constructor call built no loop closer")
     shape = (slam.map.max_kf, slam.map.max_mp, slam.map.n_feat, slam.map.max_obs)
@@ -1583,7 +1834,7 @@ def loop_run(slam, info, lf):
     """`Slam._loop_close` over the scene's tail keyframes until the loop
     closes, the reference's Sim3 minimal sets injected. Returns what
     happened, from the tracer's records and the map."""
-    from orbslam_jpminipc_torch.solvers import essential_graph
+    from orbslam_jpminipc_torch.utils.program import ProgramSet
     from orbslam_jpminipc_torch.utils.tracing import get_tracer
 
     sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -1593,14 +1844,15 @@ def loop_run(slam, info, lf):
     sets = iter(lf["sim3_sets"])
     closer.sim3_sampler = lambda mask, n_hyp: closer.dmap.put(next(sets))
     events, problems = [], []
-    solve = essential_graph.optimize_essential_graph
+    eg = closer.programs["essential_graph"]
 
-    def keep_problem(prob, iterations=20):
-        problems.append(prob)
-        return solve(prob, iterations=iterations)
+    def keep_problem(iterations, prob):
+        # a copy: the program's buffers take the next call's problem
+        problems.append(type(prob)(*(x.clone() for x in prob)))
+        return ProgramSet.run(eg, iterations, prob)
 
     tracer.log = lambda event, **f: events.append({"event": event, **f})
-    essential_graph.optimize_essential_graph = keep_problem
+    eg.run = keep_problem
     per_kf = []
     try:
         for k in info["tail"]:
@@ -1614,7 +1866,7 @@ def loop_run(slam, info, lf):
                 break
     finally:
         del tracer.log
-        essential_graph.optimize_essential_graph = solve
+        del eg.run
     last = lambda name: next((e for e in reversed(events) if e["event"] == name), None)
     out = {"per_kf": per_kf, "events": events, "eg_problem": problems[-1] if problems else None,
            "closed_kf": next((r["kf"] for r in per_kf if r["closed"]), -1)}
@@ -1760,8 +2012,11 @@ def _profile_kernels(torch, fn):
 def phase_loop(torch, fast_cuda, smi):
     import warnings
 
+    from torch.profiler import ProfilerActivity, profile
+
     from orbslam_jpminipc_torch.solvers import essential_graph, gba
     from orbslam_jpminipc_torch.utils import host
+    from orbslam_jpminipc_torch.utils.program import CallLog, ProgramSet
     from orbslam_jpminipc_torch.utils.tracing import get_tracer
     from orbslam_jpminipc_torch.vocab.vocabulary import load_vocabulary
 
@@ -1776,18 +2031,34 @@ def phase_loop(torch, fast_cuda, smi):
         torch.cuda.synchronize()
         return r, (time.perf_counter() - t0) * 1e3
 
-    # a first system, untimed, under CUDA sync debug mode: where the host
-    # waits. It also takes the first-call costs (library handles, the
-    # transforms' first trace) off the timed pass
-    slam2, info2, lf2, _ = loop_system("cuda", vocab, warmup=True)
-    with warnings.catch_warnings(record=True) as caught:
+    # a first pass, untimed, under CUDA sync debug mode: where the host
+    # waits. Its system's programs are captured part by part first
+    # (seconds, memory), then Slam.warmup; the same system, put back as a
+    # fresh one, makes the timed pass
+    compiled = []
+    slam2, info2, lf2, _ = loop_system(
+        "cuda", vocab, warmup=True,
+        before_warmup=lambda s: compiled.append(timed_compile(torch, s)))
+    with warnings.catch_warnings(record=True) as caught, CallLog() as calls:
         warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out2 = loop_run(slam2, info2, lf2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            out2 = loop_run(slam2, info2, lf2)
             slam2.global_ba()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    closure = _launch_counts(prof, 1)
+    log(f"[loop] {smi}: the closure pass ({len(out2['per_kf'])} keyframes: detection, Sim3, "
+        f"correction; first pass, under the profiler): {json.dumps(closure)}")
+    # loop closing's programs against their eager runs on the closure's inputs
+    programs = hold_programs(torch, calls.calls, "loop")
+    del calls
     sites = {}
     for w in caught:
         if "synchroniz" in str(w.message):
@@ -1801,15 +2072,15 @@ def phase_loop(torch, fast_cuda, smi):
         or "geometry/" in k}
     if in_solvers:
         raise AssertionError(f"[loop] a solver's iterations wait for the host: {in_solvers}")
-    del slam2
     # the main pass: timed by stage, held to the reference
-    (slam, info, lf, meta), build_ms = timed(lambda: loop_system("cuda", vocab, warmup=True))
+    (slam, info, lf, meta), build_ms = timed(lambda: loop_system("cuda", vocab, slam=slam2))
+    del slam2
     # the phase's own path starts here: Slam.warmup drove frames through FAST
     launches0 = fast_cuda.LAUNCHES
     log(f"[loop] scene {meta['scene']} seed {meta['seed']}: {slam.n_keyframes} keyframes, "
         f"{slam.n_points} points, capacities {slam.map.max_kf} x {slam.map.max_mp} x "
         f"{slam.map.n_feat}, eg_edges {slam.cfg.eg_edges}, built in {build_ms:.0f} ms "
-        f"(Slam.warmup included)")
+        f"(the first pass's system put back as a fresh one)")
     tracer.reset()
     torch.cuda.reset_peak_memory_stats()   # (allocated bytes: the cache stays warm)
     reads0 = host.READS
@@ -1840,17 +2111,33 @@ def phase_loop(torch, fast_cuda, smi):
     log(f"[loop] {smi}: the whole pass over {len(out['per_kf'])} keyframes {run_ms:.1f} ms, "
         f"{host.READS - reads0} batched reads; peak device memory {peak} bytes")
 
-    # the two long solvers alone, under the profiler: kernels launched
+    # the two long solvers alone, under the profiler: kernels launched; the
+    # essential graph captured (its replay, the copies in and out) and eager,
+    # and its capture alone: seconds, the memory its pool holds
     prob = out["eg_problem"]
-    eg_prof = _profile_kernels(torch, lambda: essential_graph.optimize_essential_graph(
+    eg_prog = slam.loop_closer.programs["essential_graph"]
+    eg_prof = _profile_kernels(torch, lambda: eg_prog.run(20, prob))
+    _, eg_ms = timed(lambda: eg_prog.run(20, prob))
+    eg_eager_prof = _profile_kernels(torch, lambda: essential_graph.optimize_essential_graph(
         prob, iterations=20))
-    _, eg_ms = timed(lambda: essential_graph.optimize_essential_graph(prob, iterations=20))
+    _, eg_eager_ms = timed(lambda: essential_graph.optimize_essential_graph(prob, iterations=20))
+    alone = ProgramSet(lambda v, p: essential_graph.optimize_essential_graph(p, iterations=v),
+                       "cuda", "essential_graph_alone")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    _, eg_capture_ms = timed(lambda: alone.capture(20, prob))
+    torch.cuda.empty_cache()
+    eg_capture = {"capture_s": eg_capture_ms / 1e3,
+                  "reserved_bytes": torch.cuda.memory_reserved() - r0}
+    del alone
     ba_prob, _ = slam.build_global_ba_problem()
     ba_prof = _profile_kernels(torch, lambda: gba.bundle_adjust_large(
         ba_prob, iterations=slam.cfg.gba_iterations, cg_iters=slam.cfg.gba_cg_iters))
     log(f"[loop] {smi}: essential graph alone (20 iterations, K = {prob.s.shape[0]}, "
-        f"{held['eg_n_edges']} edges in {prob.e_i.shape[0]} slots): {eg_ms:.1f} ms, "
-        f"{json.dumps(eg_prof)}")
+        f"{held['eg_n_edges']} edges in {prob.e_i.shape[0]} slots): captured {eg_ms:.1f} ms, "
+        f"{json.dumps(eg_prof)}; eager {eg_eager_ms:.1f} ms, {json.dumps(eg_eager_prof)}; its "
+        f"capture alone {json.dumps(eg_capture)}")
     log(f"[loop] {smi}: global BA under the profiler: {json.dumps(ba_prof)}")
 
     if fast_cuda.LAUNCHES != launches0:
@@ -1861,7 +2148,12 @@ def phase_loop(torch, fast_cuda, smi):
             "held": held, "per_kf": out["per_kf"], "stages": stages, "pass_ms": run_ms,
             "global_ba": ba_held, "global_ba_ms": gba_ms[0], "global_ba_profile": ba_prof,
             "essential_graph_ms": eg_ms, "essential_graph_profile": eg_prof,
-            "sync_sites": sites, "peak_mem_bytes": int(peak), "fast_launches": 0}
+            "essential_graph_eager_ms": eg_eager_ms,
+            "essential_graph_eager_profile": eg_eager_prof,
+            "essential_graph_capture": eg_capture, "compile": compiled[0],
+            "closure_pass_profile": closure,
+            "programs": programs, "sync_sites": sites, "peak_mem_bytes": int(peak),
+            "fast_launches": 0}
 
 
 # ---- the sequence: renderer, command line, resume ---------------------------

@@ -10,16 +10,21 @@ the keyframe decision (NeedNewKeyFrame :665-703), BoW + PnP relocalization
 
 Host control flow; every heavy step (matching, frustum checks, pose
 optimization) is one torch program on the tracker's device whose results
-come back in one host read. The tracker mutates only its own Frame
-bookkeeping and the per-point visible/found statistics; map growth belongs
-to local mapping. The steady WORKING state runs the fused step
+come back in one host read. On a card each runs as a captured program
+(utils/program.py `ProgramSet`: one CUDA graph per shape and variant, the
+reference's jitted programs), host arrays copied in and results copied
+out; `capture_programs` takes them all ahead of the first frame, frame
+extraction's (`frame.Extraction`) with them, on one memory pool. The
+tracker mutates only its own Frame bookkeeping and the per-point
+visible/found statistics; map growth belongs to local mapping. The steady WORKING state runs the fused step
 (fused_track.py) synchronously.
 
 Relocalization needs a keyframe database (place recognition,
 map/keyframe_db.py): with one, a LOST frame queries it for candidate
-keyframes and tries each with one program (mutual match + EPnP RANSAC +
-pose optimization) and the projection-search ladder; without one (no
-vocabulary) `_relocalize` returns False, as the reference's does, and LOST
+keyframes and tries each (mutual match + EPnP RANSAC + pose
+optimization: two programs with the RANSAC between them, eager, as its
+library factorizations read the host) and the projection-search ladder;
+without one (no vocabulary) `_relocalize` returns False, as the reference's does, and LOST
 is terminal. The keyframe decision asks the System's `mapper_busy` hook:
 under asynchronous mapping the stage queue rations keyframes; when mapping
 runs synchronously the hook is None and the mapper is always idle.
@@ -36,10 +41,11 @@ from ..map.map_state import MapState
 from ..ops import matching
 from ..solvers import initializer, pnp, pose_opt
 from ..utils.device import resolve_device
-from ..utils.host import fetch, upload
+from ..utils.host import fetch, host_tensor, upload
+from ..utils.program import GraphPool, ProgramSet
 from ..utils.tracing import get_tracer
 from . import fused_track
-from .frame import Frame
+from .frame import Extraction, Frame
 
 MAX_LOCAL_POINTS = fused_track.MAX_SLICE
 
@@ -148,23 +154,36 @@ def _track_local_map_prog(mp_xyz, mp_normal, mp_mind, mp_maxd, mp_desc,
     return visible, m.idx, m.mask, feat_q, has, res
 
 
-def _reloc_candidate_prog(sampler, f_desc, f_xy, f_angle, f_level, f_valid, w,
-                          kf_desc, kf_angle, kf_has, kf_xw, max_err2, K4):
-    """One relocalization candidate attempt as ONE program (Relocalisation
-    :881-1050 inner loop): BoW-free mutual matching against the candidate
-    keyframe, EPnP RANSAC over the matched points on minimal sets drawn by
-    `sampler(mask, n_hyp)`, then the 4-round pose optimization on the PnP
-    inliers."""
+def _reloc_match_prog(f_desc, f_angle, f_valid, kf_desc, kf_angle, kf_has, kf_xw):
+    """A relocalization candidate's first part: BoW-free mutual matching
+    against the candidate keyframe, and each frame feature's world point
+    through the candidate's bindings. Returns (idx, mask, xw)."""
     m = matching.mutual_match(
         f_desc, f_angle, f_valid, kf_desc, kf_angle, kf_has,
         max_dist=50, nn_ratio=0.75, check_rotation=True)
-    # per frame-feature world point through the candidate's bindings
-    xw = kf_xw[m.idx.to(torch.int64)]
-    valid = m.mask
+    return m.idx, m.mask, kf_xw[m.idx.to(torch.int64)]
+
+
+def _reloc_opt_prog(R, t, xw, f_xy, w, valid, inliers, K4):
+    """Its last part: the 4-round pose optimization from the PnP pose on the
+    PnP inliers among the matches. Returns (sel, result)."""
+    sel = valid & inliers
+    return sel, pose_opt.optimize_pose(R, t, xw, f_xy, w, sel, K4)
+
+
+def _reloc_candidate_prog(sampler, f_desc, f_xy, f_angle, f_level, f_valid, w,
+                          kf_desc, kf_angle, kf_has, kf_xw, max_err2, K4):
+    """One relocalization candidate attempt, the reference's one program
+    (Relocalisation :881-1050 inner loop): the mutual match, EPnP RANSAC
+    over the matched points on minimal sets drawn by `sampler(mask,
+    n_hyp)`, then the 4-round pose optimization on the PnP inliers. The
+    tracker runs the same three parts, the first and last as captured
+    programs."""
+    idx, valid, xw = _reloc_match_prog(f_desc, f_angle, f_valid, kf_desc, kf_angle,
+                                       kf_has, kf_xw)
     res = pnp.solve_pnp(sampler(valid, pnp.N_HYP), xw, f_xy, valid, K4, max_err2)
-    sel = valid & res.inliers
-    opt = pose_opt.optimize_pose(res.R, res.t, xw, f_xy, w, sel, K4)
-    return m.idx, m.mask, res.success, sel, opt
+    sel, opt = _reloc_opt_prog(res.R, res.t, xw, f_xy, w, valid, res.inliers, K4)
+    return idx, valid, res.success, sel, opt
 
 
 def _reloc_refine_prog(q_desc, uv_proj, q_level, valid_q, q_xw,
@@ -219,6 +238,23 @@ class Tracker:
         self.scale_factors = self._put(cfg.scale_factors)
         self.fused = (fused_track.FusedContext(cfg, device=self.device)
                       if cfg.fused_tracking else None)
+        # the host path's programs, on one pool (they never run at once)
+        dev, pool = self.device, GraphPool()
+        self.extraction = Extraction(cfg, device=dev, pool=pool)
+        self.programs = {
+            "track_frame": ProgramSet(lambda v, *a: _track_frame_prog(*a), dev,
+                                      "track_frame", pool=pool),
+            "track_local_map": ProgramSet(lambda v, *a: _track_local_map_prog(*a), dev,
+                                          "track_local_map", pool=pool),
+            "reloc_match": ProgramSet(lambda v, *a: _reloc_match_prog(*a), dev,
+                                      "reloc_match", pool=pool),
+            "reloc_opt": ProgramSet(lambda v, *a: _reloc_opt_prog(*a), dev, "reloc_opt",
+                                    pool=pool),
+            # variant (radius, max_dist): the ladder's two rungs
+            "reloc_refine": ProgramSet(
+                lambda v, *a: _reloc_refine_prog(*a, radius=v[0], max_dist=v[1]), dev,
+                "reloc_refine", pool=pool),
+        }
         # device mirror of the map (owned by the LocalMapper, wired by the
         # System): slice refreshes gather on the device
         self.dmap = None
@@ -248,6 +284,44 @@ class Tracker:
 
     def _feat(self, frame: Frame, name: str) -> torch.Tensor:
         return frame.feature_tensor(name, self.device)
+
+    @torch.no_grad()
+    def capture_programs(self):
+        """Capture the host path's programs ahead of the first frame at the
+        shapes the reference compiles (its `Slam._compile_programs`):
+        extraction at n1 = n_features and n2 = 2 n1; frame-to-frame tracking
+        at (last frame, frame) in {n1, n2}^2; local-map tracking at frame n1
+        and n2 against the slice's M rows; the relocalization candidate's
+        two programs and both ladder rungs at frame n1 and n2 against
+        keyframe rows. Dummy inputs of the real calls' dtypes; on the CPU
+        nothing is captured (the sets still note the shapes)."""
+        cfg, dev = self.cfg, self.device
+        n1, n2, M, nk = cfg.n_features, 2 * cfg.n_features, MAX_LOCAL_POINTS, self.map.n_feat
+        z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=dev)
+        u8, i32, b = torch.uint8, torch.int32, torch.bool
+        eye = torch.eye(3, device=dev)
+        self.extraction.capture((n1, n2))
+        P = self.programs
+        for nf in (n1, n2):
+            # the frame's desc, xy, angle, level, valid
+            f = (z(nf, 32, dt=u8), z(nf, 2), z(nf), z(nf, dt=i32), z(nf, dt=b))
+            for nq in (n1, n2):
+                P["track_frame"].capture(
+                    None, z(nq, 32, dt=u8), z(nq, 2), z(nq, 2), z(nq), z(nq, dt=i32),
+                    z(nq, dt=b), z(nq, 3), *f, z(nf), eye, z(3), self.K4, self.scale_factors)
+            P["track_local_map"].capture(
+                None, z(M, 3), z(M, 3), z(M), z(M), z(M, 32, dt=u8), z(M, dt=b), z(M, dt=b),
+                f[0], f[1], f[3], f[4], z(nf, 3), z(nf, dt=b), z(nf), eye, z(3), self.K4,
+                z(4), self.scale_factors, z())
+            P["reloc_match"].capture(None, f[0], f[2], f[4], z(nk, 32, dt=u8), z(nk),
+                                     z(nk, dt=b), z(nk, 3))
+            P["reloc_opt"].capture(None, eye, z(3), z(nf, 3), f[1], z(nf), z(nf, dt=b),
+                                   z(nf, dt=b), self.K4)
+            for rung in ((10.0, 100), (3.0, 64)):
+                P["reloc_refine"].capture(
+                    rung, z(nk, 32, dt=u8), z(nk, 2), z(nk, dt=i32), z(nk, dt=b), z(nk, 3),
+                    f[0], f[1], f[3], f[4], z(nf, 3), z(nf, dt=b), z(nf), eye, z(3),
+                    self.K4, self.scale_factors)
 
     # ------------------------------------------------------------------
     # main entry
@@ -532,15 +606,14 @@ class Tracker:
         valid_q &= z > 0
 
         w = self.cfg.inv_sigma2[np.clip(frame.level, 0, self.cfg.n_levels - 1)]
-        p = self._put
-        _idx, mmask, _use2, feat_q, res = _track_frame_prog(
-            p(desc_q), p(uv_proj), p(lf.xy_un), p(lf.angle), p(lf.level), p(valid_q),
-            p(xw.astype(np.float32)),
+        h = host_tensor
+        _idx, mmask, _use2, feat_q, res = self.programs["track_frame"].run(
+            None, h(desc_q), h(uv_proj), self._feat(lf, "xy_un"), self._feat(lf, "angle"),
+            self._feat(lf, "level"), h(valid_q), h(xw),
             self._feat(frame, "desc"), self._feat(frame, "xy_un"),
             self._feat(frame, "angle"), self._feat(frame, "level"),
             self._feat(frame, "valid"),
-            p(w.astype(np.float32)),
-            p(np.asarray(R0, np.float32)), p(np.asarray(t0, np.float32)), self.K4,
+            h(w), h(np.asarray(R0, np.float32)), h(np.asarray(t0, np.float32)), self.K4,
             self.scale_factors,
         )
         mmask, feat_q, R, t, inliers, n_inl = fetch(
@@ -618,20 +691,17 @@ class Tracker:
         lp[frame.outlier] = -1
         prev_has = lp >= 0
         prev_xw = self.map.mp_xyz[np.clip(lp, 0, self.map.max_mp - 1)]
-        p = self._put
+        h = host_tensor
         maxd = self.map.mp_max_dist[pts_pad]
-        visible, _idx, _mask, feat_q, has, res = _track_local_map_prog(
-            p(self.map.mp_xyz[pts_pad]), p(self.map.mp_normal[pts_pad]),
-            p(self.map.mp_min_dist[pts_pad]),
-            p(np.where(np.isfinite(maxd), maxd, 0.0).astype(np.float32)),
-            p(self.map.mp_desc[pts_pad]),
-            p(pvalid), p(already),
+        visible, _idx, _mask, feat_q, has, res = self.programs["track_local_map"].run(
+            None, h(self.map.mp_xyz[pts_pad]), h(self.map.mp_normal[pts_pad]),
+            h(self.map.mp_min_dist[pts_pad]), h(np.where(np.isfinite(maxd), maxd, 0.0)),
+            h(self.map.mp_desc[pts_pad]), h(pvalid), h(already),
             self._feat(frame, "desc"), self._feat(frame, "xy_un"),
             self._feat(frame, "level"), self._feat(frame, "valid"),
-            p(prev_xw), p(prev_has), p(w.astype(np.float32)),
-            p(np.asarray(frame.R, np.float32)), p(np.asarray(frame.t, np.float32)), self.K4,
-            p(self.bounds), self.scale_factors,
-            torch.full((), mult, dtype=torch.float32, device=self.device),
+            h(prev_xw), h(prev_has), h(w),
+            h(np.asarray(frame.R, np.float32)), h(np.asarray(frame.t, np.float32)), self.K4,
+            h(self.bounds), self.scale_factors, h(np.float32(mult)),
         )
         visible, feat_q, has, R, t, inliers, n_inl = fetch(
             visible, feat_q, has, res.R, res.t, res.inliers, res.n_inliers)
@@ -697,9 +767,11 @@ class Tracker:
     # ------------------------------------------------------------------
 
     def _relocalize(self, frame: Frame) -> bool:
-        """Candidates from the keyframe database, then per candidate ONE
-        program + ONE host read. Without a database (no vocabulary) LOST is
-        terminal, as in the reference."""
+        """Candidates from the keyframe database, then per candidate the
+        match program, the PnP RANSAC (eager: EPnP's library factorizations
+        read the host), the pose-optimization program and ONE host read.
+        Without a database (no vocabulary) LOST is terminal, as in the
+        reference."""
         if self.kfdb is None:
             return False
         tracer = get_tracer()
@@ -711,24 +783,19 @@ class Tracker:
         st, cfg = self.map, self.cfg
         max_err = 5.991 * cfg.sigma2[np.clip(frame.level, 0, cfg.n_levels - 1)]
         w = cfg.inv_sigma2[np.clip(frame.level, 0, cfg.n_levels - 1)]
-        p = self._put
+        w_d = self._put(w.astype(np.float32))
+        max_err_d = self._put(max_err.astype(np.float32))
+        f = lambda name: self._feat(frame, name)
+        h = host_tensor
         for kf in cands:
             kf_point = st.kf_point[kf]
             mp_safe = np.clip(kf_point, 0, st.max_mp - 1)
             kf_has = st.kf_feat_valid[kf] & (kf_point >= 0) & st.mp_valid[mp_safe]
-            # mutual match + EPnP RANSAC + 4-round pose optimization on the
-            # PnP inliers
             with tracer.stage("reloc_candidate"):
-                idx, mask, pnp_ok, sel, opt = _reloc_candidate_prog(
-                    self.pnp_sampler,
-                    self._feat(frame, "desc"), self._feat(frame, "xy_un"),
-                    self._feat(frame, "angle"), self._feat(frame, "level"),
-                    self._feat(frame, "valid"),
-                    p(w.astype(np.float32)),
-                    p(st.kf_desc[kf]), p(st.kf_angle[kf]),
-                    p(kf_has), p(st.mp_xyz[mp_safe]),
-                    p(max_err.astype(np.float32)), self.K4,
-                )
+                idx, mask, pnp_ok, sel, opt = self._reloc_candidate(
+                    f("desc"), f("xy_un"), f("angle"), f("level"), f("valid"), w_d,
+                    h(st.kf_desc[kf]), h(st.kf_angle[kf]), h(kf_has), h(st.mp_xyz[mp_safe]),
+                    max_err_d, self.K4)
                 idx, mask, pnp_ok, sel, R, t, inliers, n_inl = fetch(
                     idx, mask, pnp_ok, sel, opt.R, opt.t, opt.inliers, opt.n_inliers)
             tracer.log("reloc_attempt", frame=int(frame.frame_id),
@@ -753,6 +820,20 @@ class Tracker:
                     self.last_reloc_frame_id = frame.frame_id
                     return True
         return False
+
+    def _reloc_candidate(self, f_desc, f_xy, f_angle, f_level, f_valid, w,
+                         kf_desc, kf_angle, kf_has, kf_xw, max_err2, K4):
+        """`_reloc_candidate_prog` (mutual match + EPnP RANSAC + 4-round
+        pose optimization on the PnP inliers) cut around the RANSAC: the
+        match and the optimization run as programs, the RANSAC eagerly
+        between them on `pnp_sampler`'s sets, drawn as the one program
+        draws them."""
+        P = self.programs
+        idx, valid, xw = P["reloc_match"].run(None, f_desc, f_angle, f_valid, kf_desc,
+                                              kf_angle, kf_has, kf_xw)
+        res = pnp.solve_pnp(self.pnp_sampler(valid, pnp.N_HYP), xw, f_xy, valid, K4, max_err2)
+        sel, opt = P["reloc_opt"].run(None, res.R, res.t, xw, f_xy, w, valid, res.inliers, K4)
+        return idx, valid, res.success, sel, opt
 
     def _reloc_refine(self, frame: Frame, kf: int) -> bool:
         """The reference's full post-PnP refinement ladder
@@ -788,18 +869,16 @@ class Tracker:
         prev_has = lp >= 0
         prev_xw = st.mp_xyz[np.clip(lp, 0, st.max_mp - 1)]
         w = cfg.inv_sigma2[np.clip(frame.level, 0, cfg.n_levels - 1)]
-        p = self._put
+        h = host_tensor
         with get_tracer().stage("reloc_refine"):
-            _idx, _mask, feat_q, has, res = _reloc_refine_prog(
-                p(st.mp_desc[mpid]), p(uv_proj),
-                p(st.kf_level[kf]), p(valid_q), p(xw.astype(np.float32)),
+            _idx, _mask, feat_q, has, res = self.programs["reloc_refine"].run(
+                (radius, max_dist), h(st.mp_desc[mpid]), h(uv_proj),
+                h(st.kf_level[kf]), h(valid_q), h(xw),
                 self._feat(frame, "desc"), self._feat(frame, "xy_un"),
                 self._feat(frame, "level"), self._feat(frame, "valid"),
-                p(prev_xw), p(prev_has),
-                p(w.astype(np.float32)),
-                p(np.asarray(frame.R, np.float32)), p(np.asarray(frame.t, np.float32)),
+                h(prev_xw), h(prev_has), h(w),
+                h(np.asarray(frame.R, np.float32)), h(np.asarray(frame.t, np.float32)),
                 self.K4, self.scale_factors,
-                radius=radius, max_dist=max_dist,
             )
             feat_q, has, R, t, inliers, n_inl = fetch(
                 feat_q, has, res.R, res.t, res.inliers, res.n_inliers)

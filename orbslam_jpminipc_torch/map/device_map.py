@@ -23,7 +23,7 @@ from ..geometry import epipolar, triangulate
 from ..ops import matching
 from ..solvers import ba
 from ..utils.device import resolve_device
-from ..utils.host import upload
+from ..utils.host import host_tensor, upload
 from ..utils.program import Program
 
 TRI_CANDS = 512   # per-neighbor triangulation candidate capacity
@@ -63,10 +63,7 @@ class DeviceMap:
         `.to(device)` of pageable memory waits for the stream to drain,
         which would make every upload of a mapping stage wait for the
         programs in flight."""
-        a = np.asarray(a)
-        if a.dtype == np.float64:
-            a = a.astype(np.float32)
-        return upload(a, self.device)
+        return upload(host_tensor(a), self.device)
 
     # --- host -> device sync ------------------------------------------
 

@@ -14,9 +14,12 @@ bookkeeping is host numpy; the device programs are `mutual_match`,
 `search_by_projection`, `fuse_search`, `solve_sim3`, `optimize_sim3` and
 `optimize_essential_graph` (with more than one device to shard over and
 `cfg.distributed_gba`, the edge-sharded `sharded_optimize_essential_graph`
-of parallel/, as the reference on a multi-device mesh). Each takes its
-operands through the map mirror's `put` (pinned, queued uploads) and gives
-its results back in one batched read.
+of parallel/, as the reference on a multi-device mesh). All but
+`solve_sim3` (its `eigh` reads the host) and the sharded essential graph
+run as captured programs (utils/program.py `ProgramSet`, one CUDA graph per
+shape and variant, on one memory pool; `capture_programs` takes them ahead
+of time at the reference's shapes): host arrays are copied in, results
+copied out, and each call's results come back in one batched read.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from ..parallel.sharded_pose_graph import (
 )
 from ..solvers import essential_graph, sim3_opt, sim3solver
 from ..utils.device import resolve_device
-from ..utils.host import fetch
+from ..utils.host import fetch, host_tensor
+from ..utils.program import GraphPool, ProgramSet
 from ..utils.tracing import get_tracer
 
 # fixed capacity of the loop-side point set (mvpLoopMapPoints)
@@ -62,12 +66,67 @@ class LoopCloser:
         # device mirror of the map (wired by the System; a closer used on
         # its own makes one at first need)
         self.dmap: DeviceMap | None = None
+        # the device functions as captured programs, on one pool; the
+        # static arguments are the variants
+        dev, pool = self.device, GraphPool()
+        self.programs = {
+            "mutual": ProgramSet(lambda v, *a: matching.mutual_match(
+                *a, max_dist=50, nn_ratio=0.75, check_rotation=True), dev, "lc_mutual",
+                pool=pool),
+            # variant (radius, max_dist)
+            "proj": ProgramSet(lambda v, *a: matching.search_by_projection(
+                *a, radius=v[0], max_dist=v[1], nn_ratio=1.0, level_window=(-1, 1)), dev,
+                "lc_proj", pool=pool),
+            # variant: the radius
+            "fuse": ProgramSet(lambda v, *a: matching.fuse_search(*a, radius=v), dev,
+                               "lc_fuse", pool=pool),
+            "sim3_opt": ProgramSet(lambda v, *a: sim3_opt.optimize_sim3(*a), dev,
+                                   "lc_sim3_opt", pool=pool),
+            # variant: the iterations
+            "essential_graph": ProgramSet(
+                lambda v, prob: essential_graph.optimize_essential_graph(prob, iterations=v),
+                dev, "essential_graph", pool=pool),
+        }
 
     def _mirror(self) -> DeviceMap:
         if self.dmap is None:
             st = self.map
             self.dmap = DeviceMap(st.max_kf, st.n_feat, st.max_mp, device=self.device)
         return self.dmap
+
+    def _sharded_eg(self) -> bool:
+        """The essential graph takes parallel/'s edge-sharded solver."""
+        return len(pmesh.mesh_devices(self.device)) > 1 and self.cfg.distributed_gba
+
+    @torch.no_grad()
+    def capture_programs(self):
+        """Capture every program ahead of the first closure at the shapes
+        the reference compiles (its `Slam._compile_programs`), with dummy
+        inputs of the real calls' dtypes: the mutual match at n2 x n2 (n2 =
+        the keyframe rows), the Sim3 refinement at n2 pairs, the projection
+        searches at n2 (search by Sim3, 7.5 px) and `LOOP_POINTS_CAP` rows
+        (guided matches, 10 px), the fuse search at `LOOP_POINTS_CAP` rows,
+        and the essential graph at (max_kf, eg_edges), 20 iterations,
+        unless it takes the sharded solver. On the CPU nothing is captured."""
+        cfg, dev, P = self.cfg, self.device, self.programs
+        n2, Q, K, E = self.map.n_feat, LOOP_POINTS_CAP, self.map.max_kf, cfg.eg_edges
+        z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=dev)
+        u8, i32, b = torch.uint8, torch.int32, torch.bool
+        K4, sf = z(4), z(cfg.n_levels)
+        kf = (z(n2, 32, dt=u8), z(n2, 2), z(n2, dt=i32), z(n2, dt=b))  # desc xy level valid
+        P["mutual"].capture(None, kf[0], z(n2), kf[3], kf[0], z(n2), kf[3])
+        P["sim3_opt"].capture(None, z(), torch.eye(3, device=dev), z(3), z(n2, 3), z(n2, 3),
+                              z(n2, 2), z(n2, 2), z(n2), z(n2), z(n2, dt=b), K4)
+        for rows, variant in ((n2, (7.5, 100)), (Q, (10.0, 100))):
+            P["proj"].capture(variant, z(rows, 32, dt=u8), z(rows, 2), z(rows, dt=i32),
+                              z(rows, dt=b), *kf, sf)
+        P["fuse"].capture(4.0, z(Q, 32, dt=u8), z(Q, 2), z(Q, dt=i32), z(Q, dt=b), *kf, sf)
+        if not self._sharded_eg():
+            eye = lambda n: torch.eye(3, device=dev).repeat(n, 1, 1)
+            P["essential_graph"].capture(20, essential_graph.EssentialGraphProblem(
+                s=z(K) + 1, R=eye(K), t=z(K, 3), fixed=z(K, dt=b) | True,
+                e_i=z(E, dt=torch.int64), e_j=z(E, dt=torch.int64), e_s=z(E) + 1, e_R=eye(E),
+                e_t=z(E, 3), e_valid=z(E, dt=b)))
 
     # ------------------------------------------------------------------
 
@@ -140,17 +199,15 @@ class LoopCloser:
     def compute_sim3(self, kf: int, candidates: list[int]):
         st, cfg = self.map, self.cfg
         tracer = get_tracer()
-        put = self._mirror().put
+        put, h, P = self._mirror().put, host_tensor, self.programs
         K4 = put(cfg.K4)
         for cand in candidates:
             has_q = st.kf_feat_valid[kf] & (st.kf_point[kf] >= 0)
             has_c = st.kf_feat_valid[cand] & (st.kf_point[cand] >= 0)
             with tracer.stage("sim3_mutual"):
-                m = matching.mutual_match(
-                    put(st.kf_desc[kf]), put(st.kf_angle[kf]), put(has_q),
-                    put(st.kf_desc[cand]), put(st.kf_angle[cand]), put(has_c),
-                    max_dist=50, nn_ratio=0.75, check_rotation=True,
-                )
+                m = P["mutual"].run(
+                    None, h(st.kf_desc[kf]), h(st.kf_angle[kf]), h(has_q),
+                    h(st.kf_desc[cand]), h(st.kf_angle[cand]), h(has_c))
                 mask, idx = fetch(m.mask, m.idx)  # one read
             tracer.log("sim3_mutual", kf=int(kf), cand=int(cand), n_match=int(mask.sum()),
                        n_q=int(has_q.sum()), n_c=int(has_c.sum()))
@@ -196,13 +253,10 @@ class LoopCloser:
             lev_l = np.clip(st.kf_level[cand][idx], 0, cfg.n_levels - 1)
             # refine (OptimizeSim3, >=20 inliers gate :340-352)
             with tracer.stage("sim3_opt"):
-                opt = sim3_opt.optimize_sim3(
-                    put(s12), put(R12), put(t12),
-                    x_c_d, put(x_l.astype(np.float32)), uv_c_d, put(st.kf_xy[cand][idx]),
-                    put(cfg.inv_sigma2[lev_c].astype(np.float32)),
-                    put(cfg.inv_sigma2[lev_l].astype(np.float32)),
-                    put(pair_ok), K4,
-                )
+                opt = P["sim3_opt"].run(
+                    None, h(s12), h(R12), h(t12),
+                    x_c_d, h(x_l), uv_c_d, h(st.kf_xy[cand][idx]),
+                    h(cfg.inv_sigma2[lev_c]), h(cfg.inv_sigma2[lev_l]), h(pair_ok), K4)
                 s_o, R_o, t_o, _, n_opt = fetch(*opt)
             tracer.log("sim3_opt", kf=int(kf), cand=int(cand), n_pairs=int(pair_ok.sum()),
                        n_inliers=int(n_opt), s=float(s_o), R=R_o.tolist(), t=t_o.tolist())
@@ -236,8 +290,8 @@ class LoopCloser:
         Returns the enriched (idx12, pair_ok): two-way agreements between
         unmatched point-bearing features are added to the match set."""
         st, cfg = self.map, self.cfg
-        put = self._mirror().put
-        sf = put(cfg.scale_factors)
+        h = host_tensor
+        sf = h(cfg.scale_factors)
 
         def project_dir(src, dst, sR, t, q_skip):
             """Launch: src's map points projected into dst through (sR, t)
@@ -255,11 +309,9 @@ class LoopCloser:
             dst_p = st.kf_point[dst]
             dst_valid = st.kf_feat_valid[dst] & (dst_p >= 0) & st.mp_valid[
                 np.clip(dst_p, 0, st.max_mp - 1)]
-            m = matching.search_by_projection(
-                put(st.mp_desc[mpid]), put(uv), put(pred), put(valid_q),
-                put(st.kf_desc[dst]), put(st.kf_xy[dst]), put(st.kf_level[dst]), put(dst_valid),
-                sf, radius=th, max_dist=100, nn_ratio=1.0, level_window=(-1, 1),
-            )
+            m = self.programs["proj"].run(
+                (th, 100), h(st.mp_desc[mpid]), h(uv), h(pred), h(valid_q),
+                h(st.kf_desc[dst]), h(st.kf_xy[dst]), h(st.kf_level[dst]), h(dst_valid), sf)
             return m.idx, m.mask
 
         # skip features already matched (vbAlreadyMatched, :1301-1312)
@@ -290,7 +342,7 @@ class LoopCloser:
         """Project the loop KF neighborhood's map points into the current
         keyframe through the corrected Scw (SearchBySim3 equivalent)."""
         st, cfg = self.map, self.cfg
-        put = self._mirror().put
+        h = host_tensor
         covis = st.covisibility()
         group = {loop_kf} | {
             int(k) for k in np.nonzero(covis[loop_kf] >= 15)[0] if st.kf_valid[k]
@@ -310,13 +362,11 @@ class LoopCloser:
         pvalid &= z > 0
         dist = np.linalg.norm(x_c, axis=1)
         pred = predict_scale_level(dist, st.mp_max_dist[pts_pad], cfg.scale_factor, cfg.n_levels)
-        m = matching.search_by_projection(
-            put(st.mp_desc[pts_pad]), put(uv), put(pred), put(pvalid),
-            put(st.kf_desc[kf]), put(st.kf_xy[kf]), put(st.kf_level[kf]),
-            put(st.kf_feat_valid[kf]), put(cfg.scale_factors),
-            radius=10.0,  # th=10 at this step (LoopClosing.cc:389)
-            max_dist=100, nn_ratio=1.0, level_window=(-1, 1),
-        )
+        m = self.programs["proj"].run(
+            (10.0, 100),  # th=10 at this step (LoopClosing.cc:389)
+            h(st.mp_desc[pts_pad]), h(uv), h(pred), h(pvalid),
+            h(st.kf_desc[kf]), h(st.kf_xy[kf]), h(st.kf_level[kf]),
+            h(st.kf_feat_valid[kf]), h(cfg.scale_factors))
         mask, idx = fetch(m.mask, m.idx)
         loop_points = (pts_pad[mask], idx[mask])  # (map point, feature in kf)
         # the full loop-side point set (mvpLoopMapPoints, LoopClosing.cc:371)
@@ -435,12 +485,12 @@ class LoopCloser:
         normalized Scw decomposition), match within radius 4*scale, and
         replace any existing point with the loop point."""
         st, cfg = self.map, self.cfg
-        put = self._mirror().put
+        h = host_tensor
         pts = loop_point_ids[st.mp_valid[loop_point_ids]]
         if len(pts) == 0:
             return
         pts_pad, base_valid = self._padded_points(pts)
-        sf = put(cfg.scale_factors)
+        sf = h(cfg.scale_factors)
         for k in group:
             # the map changes between keyframes (a replaced point dies):
             # each keyframe's search sees the map the last one left
@@ -458,11 +508,10 @@ class LoopCloser:
             pred = predict_scale_level(
                 dist, st.mp_max_dist[pts_pad], cfg.scale_factor, cfg.n_levels
             )
-            m = matching.fuse_search(
-                put(st.mp_desc[pts_pad]), put(uv), put(pred), put(valid_q),
-                put(st.kf_desc[k]), put(st.kf_xy[k]), put(st.kf_level[k]),
-                put(st.kf_feat_valid[k]), sf, 4.0,
-            )
+            m = self.programs["fuse"].run(
+                4.0, h(st.mp_desc[pts_pad]), h(uv), h(pred), h(valid_q),
+                h(st.kf_desc[k]), h(st.kf_xy[k]), h(st.kf_level[k]),
+                h(st.kf_feat_valid[k]), sf)
             mask, idx = fetch(m.mask, m.idx)
             for qi in np.nonzero(mask)[0]:
                 mp = int(pts_pad[qi])
@@ -602,15 +651,15 @@ class LoopCloser:
             e_t=put(np.concatenate([np.stack(e_t), np.zeros((pad, 3))]).astype(np.float32)),
             e_valid=put(np.concatenate([np.ones(E, bool), np.zeros(pad, bool)])),
         )
-        devices = pmesh.mesh_devices(self.device)
         with get_tracer().stage("loop_essential_graph"):
-            if len(devices) > 1 and cfg.distributed_gba:
+            if self._sharded_eg():
                 # the edge-sharded pose graph over the process's devices
+                devices = pmesh.mesh_devices(self.device)
                 res = sharded_optimize_essential_graph(
                     shard_essential_graph(prob, len(devices)),
                     pmesh.DeviceMesh(devices), iterations=20)
             else:
-                res = essential_graph.optimize_essential_graph(prob, iterations=20)
+                res = self.programs["essential_graph"].run(20, prob)
             s_new, R_new, t_new, chi2 = fetch(res.s, res.R, res.t, res.chi2)
         get_tracer().log("essential_graph_done", kf=int(kf), chi2=float(chi2), edges=E)
 

@@ -121,7 +121,7 @@ class Slam:
             n_features = 2 * self.cfg.n_features if initializing else self.cfg.n_features
             with self.tracer.stage("extract"):
                 frame = build_frame(image, self.cfg, frame_id=frame_id, timestamp=timestamp,
-                                    n_features=n_features, device=self.device)
+                                    n_features=n_features, extraction=tr.extraction)
             with self.tracer.stage("track"):
                 state = tr.process_frame(frame)
             if state == TrackState.WORKING and self.cfg.fused_tracking:
@@ -262,12 +262,24 @@ class Slam:
         self._restart()
 
     def _compile_programs(self):
-        """Phase 1 of warmup(): capture the WORKING step (every segment and
-        both arms of its two host tests) and both local-BA stages at the
-        config's shapes. On the CPU nothing is captured."""
+        """Phase 1 of warmup(): capture, at the config's shapes, every
+        program the reference compiles ahead of time (its
+        `_compile_programs`): the WORKING step (every segment and both arms
+        of its two host tests), both local-BA stages, the tracking host
+        path (extraction, frame-to-frame and local-map tracking, the
+        relocalization candidate's two programs and both ladder rungs) and,
+        with a loop closer, loop closing's matchers, the Sim3 refinement
+        and the essential graph. On the CPU nothing is captured.
+
+        Left eager, as their library factorizations read the host: the
+        initialization attempt, the PnP RANSAC and the Sim3 RANSAC; and the
+        sharded essential graph of several cards."""
         if self.tracker.fused is not None:
             self.tracker.fused.capture()
         self.mapper.capture_programs()
+        self.tracker.capture_programs()
+        if self.loop_closer is not None:
+            self.loop_closer.capture_programs()
 
     def _restart(self):
         """The state of a freshly constructed system, its captured programs

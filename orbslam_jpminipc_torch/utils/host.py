@@ -16,6 +16,10 @@ frame asks `done()` and takes the result only when it costs no wait.
 staged in pinned host memory and queued behind the stream's work on a card
 (a plain `.to(device)` of pageable memory waits for the stream to drain).
 
+`host_tensor` is a host array as a CPU tensor with the dtypes the map
+mirror uploads (float64 becomes float32): a captured program's copy-in
+stages it in pinned memory and queues the copy.
+
 `READS` counts the copies made from a CUDA device (a CPU tensor costs no
 read), so a caller can report host reads per frame.
 """
@@ -104,6 +108,15 @@ def fetch_async(*tensors: torch.Tensor) -> AsyncFetch:
     current stream and return at once. On CPU tensors the handle is done at
     once and holds the same arrays as `fetch`."""
     return AsyncFetch(tensors)
+
+
+def host_tensor(a) -> torch.Tensor:
+    """A host array (or scalar) as a CPU tensor, float64 as float32."""
+    a = np.asarray(a)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    # (ascontiguousarray makes a 0-d array 1-d: the shape is put back)
+    return torch.from_numpy(np.ascontiguousarray(a)).reshape(a.shape)
 
 
 def upload(a, device) -> torch.Tensor:

@@ -30,8 +30,19 @@ replay: for a chain of programs within one call) or, with `copy_out=True`, as
 copies: the graph ends by packing every output into one byte buffer, and a
 call hands out views of one clone of it (one launch).
 
+A program reads one set of input shapes, as a `jax.jit` executable does. A
+function the reference compiles at several shapes is a `ProgramSet`: one
+`Program` per shape signature of its inputs, made at the first call with
+that signature. Programs that never replay at the same time share one
+`GraphPool`, so their graphs reuse each other's intermediates.
+
 A hand-written kernel's wrapper counts its launches with `count_launch`: a
 launch made while a program is captured is counted at each replay of it.
+
+`CallLog` keeps, while it is active, the first call of every program
+(inputs, outputs and the function that computes them eagerly), so that a
+run on a card can be checked afterwards program by program against the
+eager function on the same inputs.
 """
 from __future__ import annotations
 
@@ -45,6 +56,8 @@ _ALIGN = 16
 
 # the launch counters noted by the capture in progress (see count_launch)
 _noted: list | None = None
+# the active CallLog, if any
+_log = None
 
 
 def count_launch(add: Callable[[int], None]):
@@ -99,6 +112,21 @@ class _Captured(NamedTuple):
     launches: list           # count_launch callbacks, one per kernel launch captured
 
 
+class GraphPool:
+    """A CUDA graph memory pool, made at the first capture. Graphs captured
+    into one pool may reuse each other's intermediates, so the programs
+    that share it must never replay at the same time (one stream, one
+    thread); each graph's outputs stay its own."""
+
+    def __init__(self):
+        self._handle = None
+
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+
 class Program:
     """`fn(variant, *inputs)` as one CUDA graph per variant on a card, eager
     on the CPU.
@@ -109,7 +137,7 @@ class Program:
     """
 
     def __init__(self, fn, device, name: str, copy_in: bool = False,
-                 copy_out: bool = False):
+                 copy_out: bool = False, pool: GraphPool | None = None):
         self.fn = fn
         self.device = torch.device(device)
         self.name = name
@@ -117,7 +145,7 @@ class Program:
         self.copy_out = copy_out
         self._graphs: dict = {}
         self._inputs: list | None = None   # the leaves read in place
-        self._pool = None
+        self.pool = pool if pool is not None else GraphPool()
 
     @property
     def variants(self) -> tuple:
@@ -191,13 +219,11 @@ class Program:
             with torch.cuda.stream(stream):
                 self.fn(variant, *inputs)
             torch.cuda.current_stream().wait_stream(stream)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
             launches = []
             _noted = launches
             try:
-                with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                with torch.cuda.graph(graph, pool=self.pool.handle(), stream=stream):
                     out = self.fn(variant, *inputs)
                     packed = _pack(out) if self.copy_out else None
             finally:
@@ -205,3 +231,100 @@ class Program:
         cap = _Captured(graph, out, packed, launches)
         self._graphs[variant] = cap
         return cap
+
+
+def _signature(inputs):
+    leaves, spec = pytree.tree_flatten(inputs)
+    return spec, tuple((tuple(x.shape), x.dtype) for x in leaves)
+
+
+def _label(inputs) -> str:
+    """The sizes that tell a function's shapes apart: the leading dimension
+    of each input of 16 or more rows, each once, in order."""
+    dims = []
+    for x in pytree.tree_leaves(inputs):
+        if x.dim() and x.shape[0] >= 16 and x.shape[0] not in dims:
+            dims.append(x.shape[0])
+    return "x".join(map(str, dims))
+
+
+class ProgramSet:
+    """`fn(variant, *inputs)` at every shape it is called with: one
+    `Program` per shape signature of the inputs (the reference's jitted
+    function, compiled once per static shape), all on one `GraphPool`, the
+    inputs copied in and the outputs copied out. `capture` makes the
+    program of its inputs' shapes on the CPU too (without capturing
+    anything), so a test can tell which shapes a run reached beyond those
+    captured ahead of time."""
+
+    def __init__(self, fn, device, name: str, pool: GraphPool | None = None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.name = name
+        self.pool = pool if pool is not None else GraphPool()
+        self.programs: dict = {}   # signature -> Program
+
+    def program(self, inputs) -> Program:
+        """The program of `inputs`' shapes, made at the first need."""
+        sig = _signature(inputs)
+        prog = self.programs.get(sig)
+        if prog is None:
+            prog = Program(self.fn, self.device, f"{self.name}[{_label(inputs)}]",
+                           copy_in=True, copy_out=True, pool=self.pool)
+            self.programs[sig] = prog
+        return prog
+
+    def run(self, variant, *inputs):
+        prog = self.program(inputs)
+        out = prog.run(variant, *inputs)
+        if _log is not None:
+            _log.note(prog.name, variant, inputs, out,
+                      lambda *a: self.fn(variant, *a), self.device)
+        return out
+
+    def capture(self, variant, *inputs):
+        self.program(inputs).capture(variant, *inputs)
+
+
+class Call(NamedTuple):
+    """One logged call: `out` is what the caller got (it must not change
+    after later calls), `out_copy` a clone taken at once, `eager(*inputs)`
+    the function run eagerly."""
+
+    name: str
+    variant: object
+    inputs: tuple
+    out: object
+    out_copy: object
+    eager: Callable
+
+
+class CallLog:
+    """While active (`with CallLog() as log:`), the first call of each
+    program (by name and variant) is kept in `calls`, its inputs cloned
+    where they lie (a copy to the card would wait for it): `eager` moves
+    them to the program's device."""
+
+    def __init__(self):
+        self.calls: list[Call] = []
+        self._seen: set = set()
+
+    def __enter__(self):
+        global _log
+        if _log is not None:
+            raise RuntimeError("a CallLog is already active")
+        _log = self
+        return self
+
+    def __exit__(self, *exc):
+        global _log
+        _log = None
+
+    def note(self, name, variant, inputs, out, eager, device):
+        if (name, variant) in self._seen:
+            return
+        self._seen.add((name, variant))
+        clone = lambda t: pytree.tree_map(lambda x: x.detach().clone(), t)
+        on_device = lambda t: pytree.tree_map(lambda x: x.to(device), t)
+        self.calls.append(Call(name, variant, clone(inputs), out, clone(out),
+                               lambda *a: eager(*on_device(a))))
