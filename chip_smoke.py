@@ -146,8 +146,11 @@ Phases (any failure raises, so the script exits non-zero):
                  CPU test's bound) and to its own CPU render; ms per frame.
                  Then, in a process of its own, `python -m
                  orbslam_jpminipc_torch.run --dataset synthetic:xyz --frames
-                 300 --seed 0 --save-world ...` (the default system, frames
-                 rendered on the card), held to EVAL_r05.json with margins:
+                 300 --seed 0 --save-world ...` twice: with
+                 `pipelined_tracking=False`, then as it stands (the default
+                 system, pipelined; frames rendered on the card). The
+                 second run's files and numbers are held to EVAL_r05.json
+                 with margins:
                  at least 290 of 300 frames tracked, keyframe ATE at most 5.9
                  mm, no loop closed, one TUM line per keyframe; ms per
                  `Slam.process` by frame group and one FAST launch a frame.
@@ -156,6 +159,33 @@ Phases (any failure raises, so the script exits non-zero):
                  frames 100-160 of the same sequence; it must be WORKING
                  again within 10 frames.
 
+ 10b. pipelined  the default frame loop (`cfg.pipelined_tracking`): a WORKING
+                 frame's step dispatched as one chain of the step's graphs
+                 whose branches the device decides (`FusedContext.dispatch`,
+                 utils/graph_chain.py, csrc/graph_chain.cu), its host half
+                 run frames later. First the chain against the segments
+                 with their host reads on the step fixture's 10 frames
+                 (equal bits), the branch kernel timed alone (CUDA
+                 events) against the host read it replaces, and a dispatch's
+                 launches from the host and kernel time (torch.profiler,
+                 10 frames). Then Run P: a
+                 warmed `Slam` under the default config, `vocab=None`, over
+                 the system fixture's 28 frames with a noise frame after
+                 frame 3 (LOST, reset, the records in flight tracked again
+                 on the host path), untimed under sync debug mode and
+                 torch.profiler (waits by source line, filed as forced head,
+                 drain, host path or other; launches from the host per
+                 pipelined call), then put back as a fresh one and timed:
+                 ms per `process` call (to its return) by group (host path,
+                 pipelined keyframe, pipelined other), frames a second,
+                 the in-flight depth at every drain, stale records; every
+                 frame completed once, in frame order; one FAST launch a
+                 frame and one branch launch a branch. Last, the sequence
+                 phase's two `run.py --dataset synthetic:xyz --frames 300`
+                 runs (a process of its own when that phase did not run),
+                 pipelined and synchronous: ms per call by frame group,
+                 frames a second of both; pipelined held to >= 295
+                 tracked and kf-ATE <= 2 mm
  11. vocab       the vocabulary trainer and the builders on the card. In a
                  process of its own, `python -m orbslam_jpminipc_torch.vocab.train`
                  at its defaults (flat, 8192 words; 60 frames of xyz and loop
@@ -244,10 +274,19 @@ LOOP_COUNT_REL = 0.03     # mutual matches, inlier counts, guided total
 LOOP_SIM3_TOL = 1e-3      # scale, rotation entries, translation over the median depth
 LOOP_CHI2_REL = 0.05      # the essential graph's and global BA's final chi2
 LOOP_CENTRE_TOL = 1e-2    # camera centres after the correction, over the median depth
+# the pipelined phase: Run P's noise frame goes in after frame 3, while the
+# map holds at most 5 keyframes (on the card the first WORKING frame is frame
+# 1, on the CPU frame 3): LOST, reset, records in flight tracked again on the
+# host path, initialized again, as tests/test_torch_pipelined.py holds on the
+# CPU; run.py xyz:300 pipelined against EVAL_r05.json (298/300, kf-ATE 0.9 mm,
+# measured pipelined) with margins
+PIPE_NOISE_AT = 4
+PIPE_TRACKED_MIN = 295
+PIPE_KF_ATE_MAX = 2e-3
 # the sequence phase: the renderer against cv2's frames (tests/test_torch_dataset.py
 # holds it to equal bits on the CPU), and run.py's xyz:300 against EVAL_r05.json
-# (298/300 tracked, kf-ATE 0.9 mm, 0 loops closed) with margins: the port
-# tracks each frame to its end where the reference pipelines its tracking
+# (298/300 tracked, kf-ATE 0.9 mm, 0 loops closed) with margins; run.py runs
+# the default frame loop, pipelined, as the reference's run did
 RENDER_EQUAL_SHARE = 1.0
 RENDER_MAX_DIFF = 0
 SEQ_FRAMES = 300
@@ -326,6 +365,22 @@ def log(msg: str):
     print(msg, flush=True)
 
 
+@contextlib.contextmanager
+def _patch(obj, name, make):
+    """`obj.name = make(obj.name)` for the block, put back after it: the
+    attribute of the object itself, or none there (a method of its class)."""
+    own = name in vars(obj)
+    old = vars(obj).get(name)
+    setattr(obj, name, make(getattr(obj, name)))
+    try:
+        yield
+    finally:
+        if own:
+            setattr(obj, name, old)
+        else:
+            delattr(obj, name)
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -338,10 +393,18 @@ def phase_device(torch):
 
 
 def phase_build(fast_cuda):
+    """Both CUDA sources of the main path, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from orbslam_jpminipc_torch.utils import graph_chain
+
     t0 = time.perf_counter()
-    fast_cuda.build()
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(fast_cuda.build), pool.submit(graph_chain.build)]:
+            job.result()
     dt = time.perf_counter() - t0
-    log(f"[build] {fast_cuda.library_path().name} in {dt:.2f} s")
+    log(f"[build] {fast_cuda.library_path().name} and {graph_chain.library_path().name} "
+        f"in {dt:.2f} s")
     for line in fast_cuda.build_log.splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             log(f"[build] {line.strip()}")
@@ -783,6 +846,21 @@ def _launch_counts(prof, n):
     return {"host_launches_per_call": sum(host.values()) / n,
             "host_by_api_per_call": {k: v / n for k, v in sorted(host.items())},
             "device_ops_per_call": device / n, "device_ms_per_call": dev_us / n / 1e3}
+
+
+def _launches_in(prof, label):
+    """Per call labelled `label` (a `record_function` range): the host's
+    calls that put work on the card, by name, made inside those ranges."""
+    events = [e for e in prof.events() if not _is_device_event(e)]
+    spans = [(e.time_range.start, e.time_range.end) for e in events if e.name == label]
+    host = {}
+    for e in events:
+        base = e.name.split("_v")[0]
+        if base in _LAUNCH_APIS and any(a <= e.time_range.start <= b for a, b in spans):
+            host[base] = host.get(base, 0) + 1
+    n = max(len(spans), 1)
+    return {"calls": len(spans), "host_launches_per_call": sum(host.values()) / n,
+            "host_by_api_per_call": {k: v / n for k, v in sorted(host.items())}}
 
 
 def hold_programs(torch, calls, tag):
@@ -2158,19 +2236,23 @@ def phase_loop(torch, fast_cuda, smi):
 
 # ---- the sequence: renderer, command line, resume ---------------------------
 
-# run in a process of its own: the command line's main path, each
-# `Slam.process` call timed to its return and sorted by frame group, the FAST
-# kernel's launches counted from 0 over the run after run.py's warmup (timed
-# apart: `wall_s` is run.main without it)
+# run in a process of its own: the command line's main path, once per mode
+# named in argv[2] ("default", or "synchronous": `pipelined_tracking=False`),
+# each `Slam.process` call timed to its return and sorted by frame group, the
+# FAST kernel's and the branch kernel's launches counted from 0 over the run
+# after run.py's warmup (timed apart: `wall_s` is run.main without it)
 _SEQUENCE_RUN = r"""
-import json, sys, time
+import json, os, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
 from orbslam_jpminipc_torch import run
+from orbslam_jpminipc_torch.frontend.fused_track import FusedContext
 from orbslam_jpminipc_torch.frontend.tracking import TrackState
 from orbslam_jpminipc_torch.ops import fast_cuda
+from orbslam_jpminipc_torch.pipeline import system
 from orbslam_jpminipc_torch.pipeline.local_mapping import LocalMapper
 from orbslam_jpminipc_torch.pipeline.system import Slam
+from orbslam_jpminipc_torch.utils import graph_chain
 rows, kfs = [], []
 process, insert = Slam.process, LocalMapper.insert_keyframe
 
@@ -2181,37 +2263,454 @@ def timed(self, image, timestamp=0.0):
     ms = (time.perf_counter() - t0) * 1e3
     kind = ("lost" if TrackState.LOST in (was, out[0]) else "init" if was != TrackState.WORKING
             else "keyframe" if len(kfs) > k0 else "other")
-    rows.append({"ms": ms, "kind": kind, "state": out[0].value})
+    rows.append({"ms": ms, "kind": kind, "state": out[0].value, "t0": t0})
     return out
 
-warm, warm_s = Slam.warmup, []
+warm, warm_s, mem = Slam.warmup, [], {}
+compile_programs, build_chain = Slam._compile_programs, FusedContext._build_chain
+
+
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def timed_part(key, fn):
+    def wrapped(self):
+        t0 = time.perf_counter()
+        fn(self)
+        torch.cuda.synchronize()
+        mem[key] = mem.get(key, 0.0) + time.perf_counter() - t0
+    return wrapped
+
 
 def warmup(self):
-    # run.py's warmup: timed on its own; the rows, keyframes and FAST
-    # launches count from its end
+    # run.py's warmup: timed on its own, with its parts (the captures, the
+    # step's chain) and the host's resident memory around it; the rows,
+    # keyframes and FAST launches count from its end
+    mem["rss_before_warmup"] = rss()
     t0 = time.perf_counter()
     warm(self)
     torch.cuda.synchronize()
     warm_s.append(time.perf_counter() - t0)
+    mem.update(rss_after_warmup=rss(), reserved_after_warmup=torch.cuda.memory_reserved())
     rows.clear()
     kfs.clear()
-    fast_cuda.LAUNCHES = 0
+    fast_cuda.LAUNCHES = graph_chain.LAUNCHES = 0
+
+
+class Synchronous(Slam):
+    def __init__(self, cfg, *a, **k):
+        cfg.pipelined_tracking = False
+        super().__init__(cfg, *a, **k)
+
 
 Slam.process = timed
 Slam.warmup = warmup
+Slam._compile_programs = timed_part("compile_programs_s", compile_programs)
+FusedContext._build_chain = timed_part("chain_build_s", build_chain)
 LocalMapper.insert_keyframe = lambda self, frame: (kfs.append(frame.frame_id), insert(self, frame))[1]
 fast_cuda.build()
-fast_cuda.LAUNCHES = 0
-t0 = time.perf_counter()
-slam = run.main(sys.argv[2:])
-torch.cuda.synchronize()
-wall = time.perf_counter() - t0 - sum(warm_s)
-print("RESULT " + json.dumps({
-    "rows": rows, "fast_launches": fast_cuda.LAUNCHES, "wall_s": wall, "warmup_s": warm_s,
-    "frames_tracked": len(slam.trajectory), "n_keyframes": slam.n_keyframes,
-    "n_points": slam.n_points, "loops_closed": slam.n_loops_closed,
-    "keyframes_inserted": len(kfs), "peak_mem_bytes": torch.cuda.max_memory_allocated()}))
+graph_chain.build()
+for mode in json.loads(sys.argv[2]):
+    system.Slam = Synchronous if mode == "synchronous" else Slam
+    rows, kfs, warm_s = [], [], []
+    mem.clear()
+    fast_cuda.LAUNCHES = graph_chain.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    slam = run.main(sys.argv[3:])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - sum(warm_s)
+    kft = slam.keyframe_trajectory()
+    print("RESULT " + json.dumps({
+        "mode": mode, "tracking": "pipelined" if slam.cfg.pipelined_tracking else "synchronous",
+        "rows": rows, "fast_launches": fast_cuda.LAUNCHES,
+        "branch_launches": graph_chain.LAUNCHES, "wall_s": wall, "warmup_s": warm_s,
+        "frames_tracked": len(slam.trajectory), "n_keyframes": slam.n_keyframes,
+        "n_points": slam.n_points, "loops_closed": slam.n_loops_closed,
+        "keyframes_inserted": len(kfs), "kf_ts": [t for t, _, _ in kft],
+        "kf_centres": [(-R.T @ t).tolist() for _, R, t in kft],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "warmup_parts": dict(mem)}),
+        flush=True)
+    del slam
 """
+
+
+def _wait_sites(torch, slam, fn):
+    """Run `fn` (which drives `slam`) counting every wait for the device by
+    source line: host synchronisations (CUDA sync debug mode) and the takes
+    of a queued read that had not landed (`AsyncFetch.result`, an event
+    wait the debug mode does not see). Each wait is filed under what the
+    system was doing: completing a forced head or draining the queue
+    ("forced"), the host tracking path ("host path"), a hard mapping drain
+    or `finish` ("drain"), else "other": a pipelined `process` call that
+    should not have waited."""
+    import traceback
+    import warnings
+
+    from orbslam_jpminipc_torch.pipeline import system as psystem
+    from orbslam_jpminipc_torch.utils import host
+
+    active, sites = [], {}
+
+    def note(filename, lineno):
+        kind = next((k for k in ("forced", "drain", "host path") if k in active), "other")
+        site = f"{kind} {os.path.relpath(filename, REPO)}:{lineno}"
+        sites[site] = sites.get(site, 0) + 1
+
+    def labelled(label):
+        def make(orig):
+            def wrapped(*a, **k):
+                active.append(label(*a, **k) if callable(label) else label)
+                try:
+                    return orig(*a, **k)
+                finally:
+                    active.pop()
+            return wrapped
+        return make
+
+    tr = slam.tracker
+    stack = contextlib.ExitStack()
+    for obj, name, label in (
+            (slam, "_drain_inflight", lambda force=False, drain_all=False:
+             "forced" if force or drain_all else "completion"),
+            (slam, "_drain_mapping_hard", "drain"), (slam, "finish", "drain"),
+            (tr, "process_frame", "host path"), (tr, "_track_frame", "host path"),
+            (tr, "_track_local_map", "host path"), (psystem, "build_frame", "host path")):
+        stack.enter_context(_patch(obj, name, labelled(label)))
+    result = host.AsyncFetch.result
+
+    def taken(self):
+        if self._arrays is None and not self.done():
+            f = traceback.extract_stack()[-2]
+            note(f.filename, f.lineno)
+        return result(self)
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            note(filename, lineno)
+
+    stack.enter_context(_patch(host.AsyncFetch, "result", lambda result: taken))
+    with stack, warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+
+
+def _branch_kernel(torch, fx, smi):
+    """The chain's branch kernel held against its plain version, the host
+    read `FusedContext.track` makes: the step as one chain (`dispatch`)
+    against its segments (`track`), equal bits, on the frames of the graphs
+    phase: the tracking fixture's fed forward, the recovery frame and a
+    low-texture frame, so that each predicate takes both values (a level's
+    fast-path flag, the recovery test). Then the kernel's device time inside
+    the step's chain (torch.profiler, 10 dispatches) against the plain
+    version's (one host read of a predicate, host clock)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from orbslam_jpminipc_torch.config import SlamConfig
+    from orbslam_jpminipc_torch.frontend.fused_track import FusedContext
+
+    sf = dict(np.load(SLAM_FIXTURE))
+    frames = [(f"fixture {k}", im, None) for k, im in enumerate(fx["images"])]
+    frames += [("recovery", fx["images"][0], (sf["recovery_R0"], sf["recovery_t0"],
+                                              (fx["vel_R0"], fx["vel_t0"]))),
+               ("low texture", _low_texture_frame(fx["images"][0]), None)]
+    outs, arms = [], []
+    for name in ("track", "dispatch"):
+        ctx = _context(FusedContext, SlamConfig, fx)
+        _seed(ctx, fx)
+        run = []
+        for _, img, seed in frames:
+            if seed is not None:
+                ctx.set_pose(seed[0], seed[1], velocity=seed[2])
+            out = getattr(ctx, name)(torch.as_tensor(img).cuda())
+            run.append(list(_step_fields(out).values())
+                       + [x.clone() for x in (ctx.R, ctx.t, ctx.vel_R, ctx.vel_t)])
+            if name == "track":
+                arms.append({"slow_levels": [k for k, ok in enumerate(ctx.last_fast_ok)
+                                             if not ok],
+                             "recovery": ctx.last_pass1_inliers < 20})
+        outs.append(run)
+    per_frame = [max(float((a.double() - b.double()).abs().max()) if a.is_floating_point()
+                     else float((a.long() - b.long()).abs().max()) for a, b in zip(fa, fb))
+                 for fa, fb in zip(*outs)]
+    unequal = [f[0] for f, fa, fb in zip(frames, *outs)
+               if not all(torch.equal(a, b) for a, b in zip(fa, fb))]
+    err = max(per_frame)
+    n_levels = len(ctx.step.plan)
+    slow = sum(len(r["slow_levels"]) for r in arms)
+    recovered = sum(r["recovery"] for r in arms)
+    # the pipelined step's own launches from the host and kernel time, and
+    # the branch kernel's device time inside it: the last context's
+    # dispatch over 10 frames under the profiler
+    img = torch.as_tensor(fx["images"][0]).cuda()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ctx.dispatch(img)
+        torch.cuda.synchronize()
+    step = _launch_counts(prof, 10)
+    kern = [e for e in prof.key_averages()
+            if _is_device_event(e) and "chain_branch_kernel" in e.key]
+    n_kern = sum(e.count for e in kern)
+    if n_kern == 0:
+        raise AssertionError("[pipelined] no branch kernel in the profiled dispatches")
+    ms = sum(_device_time_us(e) for e in kern) / n_kern / 1e3
+    pred = ctx._detect.captured(None).out.fast_ok[:1]
+    torch.cuda.synchronize()
+    reads = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        bool(pred)
+        reads.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = float(np.median(reads[10:]))
+    # the least time: the predicate byte read once; its compare and the two
+    # handle writes at the card's float32 rate
+    bound_b, bound_o = 1 / HBM_BYTES_PER_S * 1e3, 3 / FP32_OPS_PER_S * 1e3
+    res = {"max_abs_err": err, "frames": len(frames), "unequal_frames": unequal,
+           "arms": {"slow_levels": slow, "fast_levels": n_levels * len(frames) - slow,
+                    "recovery": recovered, "no_recovery": len(frames) - recovered},
+           "ms": ms, "profiled_launches": n_kern, "plain_ms": plain_ms,
+           "bound_ms": max(bound_b, bound_o),
+           "bound_by": "bytes" if bound_b >= bound_o else "operations", "dispatch": step}
+    log(f"[pipelined] {smi}: the step's chain against its segments with their host reads "
+        f"over {len(frames)} frames (fixture, recovery, low texture): max abs difference "
+        f"{err}, frames not equal {unequal}; arms taken by track: {json.dumps(res['arms'])}; "
+        f"the branch kernel {ms:.4f} ms per launch inside the step's chain (torch.profiler, "
+        f"{n_kern} launches), the host read it replaces {plain_ms:.4f} ms (host clock); a "
+        f"dispatch (torch.profiler, 10 frames): "
+        f"{step['host_launches_per_call']:.1f} launches from the host "
+        f"{json.dumps(step['host_by_api_per_call'])}, {step['device_ops_per_call']:.0f} device "
+        f"ops, {step['device_ms_per_call']:.2f} ms of kernel time")
+    if unequal or err != 0:
+        raise AssertionError(f"[pipelined] the chain's step is off the segments' on {unequal}")
+    if not (slow and n_levels * len(frames) - slow and recovered and len(frames) - recovered):
+        raise AssertionError(f"[pipelined] the frames did not take both arms of both "
+                             f"branches: {res['arms']}")
+    return res
+
+
+def phase_pipelined(torch, fast_cuda, smi, sequence=None):
+    """Run P: the default config (pipelined tracking, asynchronous mapping)
+    on a warmed system over the system fixture's 28 frames with a noise
+    frame after frame 3; then run.py xyz:300 pipelined and synchronous in
+    one process (`sequence`: the sequence phase's result, whose runs these
+    are when it ran)."""
+    from orbslam_jpminipc_torch.config import SlamConfig
+    from orbslam_jpminipc_torch.pipeline.system import Slam
+    from orbslam_jpminipc_torch.utils import graph_chain
+
+    res = {"card": smi, "branch_kernel": _branch_kernel(torch, dict(np.load(FIXTURE)), smi)}
+    sf = dict(np.load(SLAM_FIXTURE))
+    meta = json.loads(str(sf["meta"]))
+    cfg = SlamConfig(**dict(meta["config"], pipelined_tracking=True, async_mapping=True))
+    if cfg != SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=1000):
+        raise AssertionError("[pipelined] Run P's config is not the default one")
+    images = [torch.as_tensor(im).cuda() for im in sf["images"]]
+    ts = [float(t) for t in sf["timestamps"]]
+    noise = np.random.default_rng(7).integers(0, 256, (480, 640)).astype(np.uint8)
+    images.insert(PIPE_NOISE_AT, torch.as_tensor(noise).cuda())
+    ts.insert(PIPE_NOISE_AT, 0.5 * (ts[PIPE_NOISE_AT - 1] + ts[PIPE_NOISE_AT]))
+    n = len(images)
+
+    slam = Slam(cfg, vocab=None, device="cuda")
+    t0 = time.perf_counter()
+    slam.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    def drive():
+        """The frames through `process`; completions, depths and stale
+        records counted. Timed: each call to its return (it queues device
+        work), the whole run to the end of its device work."""
+        done, depths, stale, kfs, rows = [], [], [], [], []
+        stack = contextlib.ExitStack()
+        stack.enter_context(_patch(slam, "_after_track", lambda after: lambda st, fr, t: (
+            done.append(None if fr is None else fr.frame_id), after(st, fr, t))[1]))
+        stack.enter_context(_patch(slam, "_drain_inflight", lambda drain: lambda force=False,
+                                   drain_all=False: (depths.append(len(slam._inflight)),
+                                                     drain(force, drain_all))[1]))
+        stack.enter_context(_patch(slam.tracker, "reprocess_stale", lambda reproc: lambda rec: (
+            stale.append(rec.frame_id), reproc(rec))[1]))
+        stack.enter_context(_patch(slam.mapper, "insert_keyframe", lambda insert: lambda fr: (
+            kfs.append(fr.frame_id), insert(fr))[1]))
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        with stack:
+            for img, t in zip(images, ts):
+                pipelined = slam.tracker.fused_usable(slam.frame_count)
+                k0 = len(kfs)
+                t0 = time.perf_counter()
+                with torch.profiler.record_function("pipelined_call" if pipelined else "call"):
+                    state, frame = slam.process(img, t)
+                ms = (time.perf_counter() - t0) * 1e3
+                kind = ("pipelined_keyframe" if pipelined and len(kfs) > k0
+                        else "pipelined_other" if pipelined else "host")
+                rows.append({"ms": ms, "kind": kind, "state": state.value,
+                             "depth": len(slam._inflight),
+                             "completed": None if frame is None else frame.frame_id})
+            slam.finish()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+        return {"rows": rows, "completed": done, "depths": depths, "stale": stale,
+                "keyframes_inserted": kfs, "wall_s": wall}
+
+    # first the waits by source line and the launches from the host, untimed
+    # (sync debug mode and the profiler slow the calls); then, the system put
+    # back as a fresh one, the timed run with every count from 0
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        waits_box = {}
+        waits_box["sites"] = _wait_sites(torch, slam, lambda: waits_box.update(run=drive()))
+    launches = _launches_in(prof, "pipelined_call")
+    untimed = waits_box["run"]
+    slam._restart()
+    fast_cuda.LAUNCHES = graph_chain.LAUNCHES = 0
+    run = drive()
+    fast_launches, branch_launches = fast_cuda.LAUNCHES, graph_chain.LAUNCHES
+    rows = run["rows"]
+    groups = {k: _percentiles([r["ms"] for r in rows if r["kind"] == k])
+              for k in ("host", "pipelined_keyframe", "pipelined_other")}
+    hist = {}
+    for d in run["depths"]:
+        hist[d] = hist.get(d, 0) + 1
+    waits = waits_box["sites"]
+    other_waits = {k: v for k, v in waits.items() if k.startswith("other ")}
+    n_pipelined = sum(r["kind"] != "host" for r in rows)
+    p = {"frames": n, "warmup_s": warmup_s, "wall_s": run["wall_s"],
+         "frames_per_s": n / run["wall_s"], "ms_per_frame": groups,
+         "depth_histogram": {str(k): v for k, v in sorted(hist.items())},
+         "stale_reprocessed": len(run["stale"]), "stale_untimed_run": len(untimed["stale"]),
+         "pipelined_calls": n_pipelined, "waits_by_site": waits,
+         "waits_outside_forced_drain_host": sum(other_waits.values()),
+         "launches_from_host_per_call": launches["host_launches_per_call"],
+         "launches_by_api_per_call": launches["host_by_api_per_call"],
+         "fast_launches": fast_launches, "branch_launches": branch_launches,
+         "frames_tracked": len(slam.trajectory), "n_keyframes": slam.n_keyframes,
+         "n_points": slam.n_points, "keyframes_inserted": len(run["keyframes_inserted"]),
+         "states": [r["state"] for r in rows], "completed_per_call": [r["completed"] for r in rows]}
+    res["run_p"] = p
+    for k, g in groups.items():
+        log(f"[pipelined] {smi}: Run P {k} calls, ms per process (to the call's return): "
+            f"{json.dumps(g)}")
+    log(f"[pipelined] {smi}: Run P {n} frames (noise after frame {PIPE_NOISE_AT - 1}) in "
+        f"{run['wall_s']:.3f} s = {p['frames_per_s']:.2f} frames a second after a "
+        f"{warmup_s:.1f} s warmup; {n_pipelined} pipelined calls; in-flight depth at each "
+        f"drain {json.dumps(p['depth_histogram'])}; stale records tracked again "
+        f"{p['stale_reprocessed']} (untimed run {p['stale_untimed_run']}); tracked "
+        f"{p['frames_tracked']}, keyframes {p['n_keyframes']} (inserted "
+        f"{p['keyframes_inserted']}), points {p['n_points']}; FAST launches {fast_launches}, "
+        f"branch kernel launches {branch_launches}")
+    log(f"[pipelined] {smi}: Run P waits by source line (untimed run): {json.dumps(waits)}; "
+        f"outside a forced head, a drain or the host path: {p['waits_outside_forced_drain_host']}")
+    log(f"[pipelined] {smi}: Run P launches from the host per pipelined process call "
+        f"(untimed run, torch.profiler, {launches['calls']} calls): "
+        f"{launches['host_launches_per_call']:.1f} {json.dumps(launches['host_by_api_per_call'])}")
+    if sorted(run["completed"]) != list(range(n)) or run["completed"] != sorted(run["completed"]):
+        raise AssertionError(f"[pipelined] frames completed {run['completed']}: every one of "
+                             f"0..{n - 1} once, in frame order")
+    tss = [t for t, _, _ in slam.trajectory]
+    if tss != sorted(tss) or len(slam._inflight) != 0:
+        raise AssertionError("[pipelined] trajectory out of frame order or records left in flight")
+    links = len(slam.tracker.fused.step.plan) + 1
+    if n_pipelined == 0 or branch_launches != links * n_pipelined:
+        raise AssertionError(f"[pipelined] {branch_launches} branch launches for "
+                             f"{n_pipelined} pipelined calls")
+    if fast_launches != n:
+        raise AssertionError(f"[pipelined] {fast_launches} FAST launches for {n} frames")
+
+    # -- run.py xyz:300, pipelined (the default) and synchronous, one process:
+    # the sequence phase's two runs, or runs of its own without that phase
+    if sequence is not None:
+        runs = {"default": sequence["run"], "synchronous": sequence["run_synchronous"]}
+    else:
+        tmp = os.path.join(REPO, "build", "chip_smoke_pipelined")   # .gitignore lists build/
+        os.makedirs(tmp, exist_ok=True)
+        runs = _run_modes(["synchronous", "default"],
+                          ["--dataset", "synthetic:xyz", "--frames", str(SEQ_FRAMES), "--seed",
+                           "0", "--out", os.path.join(tmp, "kf.txt")], "[pipelined]")
+    for mode, r in runs.items():
+        res[mode] = {k: v for k, v in r.items() if k not in ("kf_ts", "kf_centres")}
+        for k, g in r["ms_per_frame"].items():
+            log(f"[pipelined] {smi}: run.py xyz:{SEQ_FRAMES} {mode} {k} frames ms per "
+                f"process (to the call's return): {json.dumps(g)}")
+        log(f"[pipelined] {smi}: run.py xyz:{SEQ_FRAMES} {mode} ({r['tracking']} "
+            f"tracking): {r['frames_per_s']:.2f} frames a second over the frame loop "
+            f"({r['loop_s']:.2f} s; {r['main_frames_per_s']:.2f} over run.main's "
+            f"{r['wall_s']:.2f} s after its warmup {r['warmup_s']} s), tracked "
+            f"{r['frames_tracked']}/{r['frames']}, "
+            f"keyframes {r['n_keyframes']}, kf ATE {r['kf_ate_run'] * 1e3:.3f} mm, loops closed "
+            f"{r['loops_closed']}, FAST launches {r['fast_launches']}, branch kernel launches "
+            f"{r['branch_launches']}")
+        w = r["warmup_parts"]
+        log(f"[pipelined] {smi}: run.py xyz:{SEQ_FRAMES} {mode} warmup {r['warmup_s']} s: "
+            f"_compile_programs {w.get('compile_programs_s', 0.0):.2f} s, the step's chain "
+            f"built in {w.get('chain_build_s', 0.0):.3f} s; host resident memory "
+            f"{w['rss_before_warmup']} bytes before it, {w['rss_after_warmup']} after; "
+            f"device memory reserved after it {w['reserved_after_warmup']} bytes")
+    pl, sy = res["default"], res["synchronous"]
+    if pl["tracking"] != "pipelined" or sy["tracking"] != "synchronous":
+        raise AssertionError("[pipelined] run.py ran the wrong frame loops")
+    if pl["frames_tracked"] < PIPE_TRACKED_MIN or not pl["kf_ate_run"] <= PIPE_KF_ATE_MAX:
+        raise AssertionError(f"[pipelined] run.py xyz:{SEQ_FRAMES} pipelined tracked "
+                             f"{pl['frames_tracked']}, kf ATE {pl['kf_ate_run']}: needs >= "
+                             f"{PIPE_TRACKED_MIN} and <= {PIPE_KF_ATE_MAX}")
+    # the synchronous loop as the sequence phase holds it
+    if (sy["frames_tracked"] < SEQ_TRACKED_MIN or not sy["kf_ate_run"] <= SEQ_KF_ATE_MAX
+            or sy["fast_launches"] != SEQ_FRAMES):
+        raise AssertionError(f"[pipelined] run.py xyz:{SEQ_FRAMES} synchronous tracked "
+                             f"{sy['frames_tracked']}, kf ATE {sy['kf_ate_run']}, FAST "
+                             f"launches {sy['fast_launches']}: needs >= {SEQ_TRACKED_MIN}, "
+                             f"<= {SEQ_KF_ATE_MAX} and one a frame")
+    log(f"[pipelined] {smi}: run.py xyz:{SEQ_FRAMES} frames a second over the frame loop: "
+        f"pipelined {pl['frames_per_s']:.2f}, synchronous {sy['frames_per_s']:.2f} (over "
+        f"run.main: {pl['main_frames_per_s']:.2f}, {sy['main_frames_per_s']:.2f})")
+    res["fast_launches"] = fast_launches
+    return res
+
+
+def _run_modes(modes, args, tag):
+    """`_SEQUENCE_RUN` over `modes` in one process of its own: per mode its
+    RESULT with ms per call by frame group, frames a second and the keyframe
+    trajectory's ATE against the xyz:SEQ_FRAMES ground truth (`kf_ate_run`)."""
+    from orbslam_jpminipc_torch.io.dataset import SyntheticSequence
+    from orbslam_jpminipc_torch.io.trajectory import ate_rmse
+
+    out = subprocess.run([sys.executable, "-c", _SEQUENCE_RUN, REPO, json.dumps(modes), *args],
+                         cwd=REPO, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
+    if out.returncode != 0 or len(lines) != len(modes):
+        sys.stderr.write(out.stdout[-3000:] + out.stderr[-5000:])
+        raise AssertionError(f"{tag} python -m orbslam_jpminipc_torch.run failed")
+    for ln in out.stdout.splitlines():
+        if not ln.startswith("RESULT "):
+            log(f"{tag} run.py: {ln}")
+    gt = SyntheticSequence._trajectory(None, SEQ_FRAMES, "xyz")
+    by_ts = {round(i / 30.0, 6): gt[i] for i in range(SEQ_FRAMES)}
+    runs = {}
+    for ln in lines:
+        r = json.loads(ln[len("RESULT "):])
+        rows = r.pop("rows")
+        gtc = np.stack([-by_ts[round(t, 6)][0].T @ by_ts[round(t, 6)][1]
+                        for t in r["kf_ts"]]).astype(np.float64)
+        # the frame loop's rate: the first call's start to the last call's
+        # return (run.main's wall time adds the vocabulary, `finish()` and
+        # the files)
+        loop_s = rows[-1]["t0"] + rows[-1]["ms"] / 1e3 - rows[0]["t0"]
+        r.update(kf_ate_run=ate_rmse(np.array(r["kf_centres"], np.float64), gtc),
+                 frames=len(rows), loop_s=loop_s, frames_per_s=len(rows) / loop_s,
+                 main_frames_per_s=len(rows) / r["wall_s"],
+                 ms_per_frame={k: _percentiles([x["ms"] for x in rows if x["kind"] == k])
+                               for k in ("init", "keyframe", "other", "lost")})
+        runs[r["mode"]] = r
+    return runs
 
 
 def _tum_centres(path):
@@ -2267,33 +2766,26 @@ def phase_sequence(torch, fast_cuda, smi):
     kf_txt, world = os.path.join(tmp, "kf.txt"), os.path.join(tmp, "w.npz")
     args = ["--dataset", "synthetic:xyz", "--frames", str(SEQ_FRAMES), "--seed", "0",
             "--out", kf_txt, "--save-world", world]
+    # the synchronous frame loop first, then the default (pipelined) one,
+    # whose trajectory and world the files keep; the pipelined phase
+    # compares the two runs' frames a second
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", _SEQUENCE_RUN, REPO, *args], cwd=REPO,
-                         capture_output=True, text=True, timeout=900)
+    runs = _run_modes(["synchronous", "default"], args, "[sequence]")
     wall = time.perf_counter() - t0
-    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
-    if out.returncode != 0 or not lines:
-        sys.stderr.write(out.stdout[-3000:] + out.stderr[-5000:])
-        raise AssertionError("[sequence] python -m orbslam_jpminipc_torch.run failed")
-    for ln in out.stdout.splitlines():
-        if not ln.startswith("RESULT "):
-            log(f"[sequence] run.py: {ln}")
-    r = json.loads(lines[-1][len("RESULT "):])
-    rows = r.pop("rows")
-    groups = {k: _percentiles([x["ms"] for x in rows if x["kind"] == k])
-              for k in ("init", "keyframe", "other", "lost")}
+    r = runs["default"]
+    res["run_synchronous"] = runs["synchronous"]
+    groups = r["ms_per_frame"]
     gt = SyntheticSequence._trajectory(None, SEQ_FRAMES, "xyz")
     by_ts = {round(i / 30.0, 6): gt[i] for i in range(SEQ_FRAMES)}
     ts, est = _tum_centres(kf_txt)
     gtc = np.stack([-by_ts[round(t, 6)][0].T @ by_ts[round(t, 6)][1] for t in ts]).astype(np.float64)
     kf_ate = ate_rmse(est, gtc)
-    r.update({"process_wall_s": wall, "ms_per_frame": groups, "kf_ate": kf_ate,
-              "tum_lines": len(ts), "frames": len(rows)})
+    r.update({"process_wall_s": wall, "kf_ate": kf_ate, "tum_lines": len(ts)})
     res["run"] = r
     for k, g in groups.items():
         log(f"[sequence] {smi}: run.py xyz:{SEQ_FRAMES} {k} frames ms per process (to the "
             f"call's return): {json.dumps(g)}")
-    log(f"[sequence] {smi}: run.py xyz:{SEQ_FRAMES}: tracked {r['frames_tracked']}/{len(rows)}, "
+    log(f"[sequence] {smi}: run.py xyz:{SEQ_FRAMES}: tracked {r['frames_tracked']}/{r['frames']}, "
         f"keyframes {r['n_keyframes']} (inserted {r['keyframes_inserted']}), points "
         f"{r['n_points']}, loops closed {r['loops_closed']}, kf ATE {kf_ate * 1e3:.3f} mm "
         f"(EVAL_r05: 298/300, 0.9 mm, 0), TUM lines {len(ts)}; run.main {r['wall_s']:.1f} s "
@@ -2301,13 +2793,21 @@ def phase_sequence(torch, fast_cuda, smi):
         f"{r['warmup_s']} s, "
         f"the process {wall:.1f} s; FAST launches {r['fast_launches']}; peak device memory "
         f"{r['peak_mem_bytes']} bytes")
-    if len(rows) != SEQ_FRAMES or r["fast_launches"] != SEQ_FRAMES:
-        raise AssertionError(f"[sequence] {len(rows)} frames, {r['fast_launches']} FAST launches, "
-                             f"expected one a frame over {SEQ_FRAMES}")
-    if r["frames_tracked"] < SEQ_TRACKED_MIN:
-        raise AssertionError(f"[sequence] tracked {r['frames_tracked']} < {SEQ_TRACKED_MIN}")
-    if not np.isfinite(kf_ate) or kf_ate > SEQ_KF_ATE_MAX:
-        raise AssertionError(f"[sequence] keyframe ATE {kf_ate} above {SEQ_KF_ATE_MAX}")
+    sy = runs["synchronous"]
+    log(f"[sequence] {smi}: run.py xyz:{SEQ_FRAMES} synchronous: tracked "
+        f"{sy['frames_tracked']}/{sy['frames']}, keyframes {sy['n_keyframes']}, kf ATE "
+        f"{sy['kf_ate_run'] * 1e3:.3f} mm, FAST launches {sy['fast_launches']}")
+    # both frame loops held alike: the file's trajectory is the default run's
+    for mode, run_, ate in (("default", r, kf_ate), ("synchronous", sy, sy["kf_ate_run"])):
+        if run_["frames"] != SEQ_FRAMES or run_["fast_launches"] != SEQ_FRAMES:
+            raise AssertionError(f"[sequence] {mode}: {run_['frames']} frames, "
+                                 f"{run_['fast_launches']} FAST launches, expected one a "
+                                 f"frame over {SEQ_FRAMES}")
+        if run_["frames_tracked"] < SEQ_TRACKED_MIN:
+            raise AssertionError(f"[sequence] {mode}: tracked {run_['frames_tracked']} < "
+                                 f"{SEQ_TRACKED_MIN}")
+        if not np.isfinite(ate) or ate > SEQ_KF_ATE_MAX:
+            raise AssertionError(f"[sequence] {mode}: keyframe ATE {ate} above {SEQ_KF_ATE_MAX}")
     if r["loops_closed"] != 0:
         raise AssertionError(f"[sequence] {r['loops_closed']} loops closed, the reference closes 0")
     if len(ts) != r["n_keyframes"]:
@@ -2491,7 +2991,8 @@ def phase_vocab(torch, fast_cuda, smi):
 
     # -- run.py with the trained flat vocabulary --------------------------------
     kf_txt = os.path.join(tmp, "kf.txt")
-    r, lines = _run_script(_SEQUENCE_RUN, [REPO, "--dataset", "synthetic:xyz", "--frames",
+    r, lines = _run_script(_SEQUENCE_RUN, [REPO, '["default"]', "--dataset", "synthetic:xyz",
+                                           "--frames",
                                            str(VOCAB_RUN_FRAMES), "--seed", "0", "--vocab", flat,
                                            "--out", kf_txt],
                            "[vocab] run.py with the trained vocabulary", 600)
@@ -2799,6 +3300,7 @@ def main() -> int:
         "reloc_async": lambda: phase_reloc_async(torch, fast_cuda, smi),
         "loop": lambda: phase_loop(torch, fast_cuda, smi),
         "sequence": lambda: phase_sequence(torch, fast_cuda, smi),
+        "pipelined": lambda: phase_pipelined(torch, fast_cuda, smi, report.get("sequence")),
         "vocab": lambda: phase_vocab(torch, fast_cuda, smi),
         "multichip": lambda: phase_multichip(torch, fast_cuda, smi),
     }
@@ -2824,6 +3326,7 @@ def main() -> int:
         return 0
 
     k = report["kernel"]["frame"]
+    b = report["pipelined"]["branch_kernel"]
     log(f"chip_smoke: {report['device']}: the whole script took "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
@@ -2840,6 +3343,8 @@ def main() -> int:
         "launches_async_run": report["reloc_async"]["run_a"]["fast_launches"],
         "launches_loop_phase": report["loop"]["fast_launches"],
         "launches_sequence_phase": report["sequence"]["fast_launches"],
+        # Run P, the pipelined frame loop on the system fixture
+        "launches_pipelined_phase": report["pipelined"]["fast_launches"],
         # the default vocabulary training: one launch a training frame
         "launches_vocab_phase": report["vocab"]["fast_launches"],
         "launches_multichip_phase": report["multichip"]["fast_launches"],
@@ -2852,6 +3357,24 @@ def main() -> int:
         "device_ms": k["device_ms"], "plain_device_ms": k["plain_device_ms"],
         "eight_launches_ms": k["eight_launches_ms"],
         "eight_launches_device_ms": k["eight_launches_device_ms"],
+    }, {
+        # the device's decision of a `lax.cond` in the pipelined step: one
+        # launch per branch of the step's chain (a pick per pyramid level,
+        # the recovery test), counted over Run P
+        "name": "chain_branch_kernel",
+        "route": "cuda",
+        "source": "orbslam_jpminipc_torch/csrc/graph_chain.cu",
+        # the recovery pass's lax.cond; the per-level pick's is the other
+        "replaces": "orbslam_jpminipc_tpu/frontend/fused_track.py:220",
+        "replaces_also": "orbslam_jpminipc_tpu/ops/extractor.py:133",
+        "launches": report["pipelined"]["run_p"]["branch_launches"],
+        # the sequence phase's run.py xyz:300, pipelined
+        "launches_run_py_pipelined": report["pipelined"]["default"]["branch_launches"],
+        "max_abs_err": b["max_abs_err"],
+        "ms": b["ms"], "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        # no PyTorch call decides a graph's branch on the device
+        "library_ms": None,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,23 @@
 
 Runs the synthetic suite (or a TUM RGB-D directory with `--tum <dir>`)
 through `orbslam_jpminipc_torch` with the 64k-word tree vocabulary and the
-default system (`Slam(cfg, vocab=v)`: asynchronous mapping, loop closing
-on), on the current CUDA device unless `--device` names another.
+default system (`Slam(cfg, vocab=v)`: pipelined tracking, asynchronous
+mapping, loop closing on, as eval.py runs the reference and as EVAL_r05.json
+was measured), on the current CUDA device unless `--device` names another.
 
     python3 eval_torch.py --seqs xyz:300,loop:400,orbit:300
 
-Prints one JSON line per sequence, with the keys of eval.py's lines:
+Prints one JSON line per sequence, with the keys of eval.py's lines and the
+tracking mode that ran:
   {"metric": "kf_ate_rmse_<seq>", "unit": "m", "value": N, "frames": F,
    "frames_tracked": T, "keyframes": K, "points": P, "loops_closed": L,
-   "fps": R, "ate_rmse": A, "extent_m": E, "ate_pct_extent": X, ...}
+   "fps": R, "ate_rmse": A, "extent_m": E, "ate_pct_extent": X, ...,
+   "tracking": "pipelined"}
+
+Pipelined runs differ from run to run on a card, as the reference's do on
+its device: which frame's results have landed when a frame is submitted
+depends on timing, and with it which frames become keyframes. Compare
+several runs, not one, with EVAL_r05.json.
 
 The aggregate (`--out`) also holds the card's name and power limit as
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives them.
@@ -95,6 +103,11 @@ def run_sequence(seq, cfg, vocab, frames, gt_poses=None, verbose=True, warmup=Tr
     return result
 
 
+def _mode(cfg) -> str:
+    """The frame loop that ran: pipelined runs vary from run to run."""
+    return "pipelined" if cfg.pipelined_tracking else "synchronous"
+
+
 def card():
     """The card's name and power limit, or None off a card."""
     try:
@@ -133,13 +146,12 @@ def main(argv=None):
     device = resolve_device(args.device)
     vocab = load_vocabulary(os.path.join(REPO, "orbslam_jpminipc_torch", "data",
                                          "vocab_tree64k.npz"), device=device)
-    # pipelined tracking (the reference's default) is refused by this package
     if args.tum:
-        cfg = SlamConfig(n_features=args.n_features, pipelined_tracking=False)
+        cfg = SlamConfig(n_features=args.n_features)
         seq = TumDataset(args.tum, device=device)
         res = run_sequence(seq, cfg, vocab, args.frames, warmup=not args.no_warmup,
                            device=device)
-        print(json.dumps({"metric": "tum_run", **res}))
+        print(json.dumps({"metric": "tum_run", **res, "tracking": _mode(cfg)}))
         return
 
     all_results = {}
@@ -149,7 +161,6 @@ def main(argv=None):
         cfg = SlamConfig(
             fx=500.0, fy=500.0, cx=320.0, cy=240.0,
             k1=0.0, k2=0.0, p1=0.0, p2=0.0, n_features=args.n_features,
-            pipelined_tracking=False,
         )
         seq = SyntheticSequence(n_frames=n, trajectory=name, seed=args.seed, device=device)
         gt = {round(float(seq.timestamps[i]), 6): seq.poses[i] for i in range(len(seq))}
@@ -158,8 +169,8 @@ def main(argv=None):
         # headline: the keyframe-trajectory ATE (main.cc:226-245, TRO'15)
         print(json.dumps({"metric": f"kf_ate_rmse_{name}", "unit": "m",
                           "value": res.get("kf_ate_rmse", res.get("ate_rmse")),
-                          **res}), flush=True)
-        all_results[name] = res
+                          **res, "tracking": _mode(cfg)}), flush=True)
+        all_results[name] = {**res, "tracking": _mode(cfg)}
     all_results["card"] = card() if device.type == "cuda" else None
     if args.out:
         with open(args.out, "w") as f:

@@ -19,13 +19,18 @@ single packed host-pull buffer is not needed here.
 
 The reference runs the step as ONE XLA program with two `lax.cond`s in it:
 the extractor's fast/slow candidate path per level, and the recovery pass.
-Here each `lax.cond` becomes a host read (all levels' flags in one transfer;
-`n_inliers < 20`), and the step is three segments between them (`detect`,
-`pass1`, `pass2`, with `pick` per level). `FusedContext` runs each segment
-as a captured program (utils/program.py), one per arm of a cond: on a card
-a frame is a handful of graph replays. The recovery pass runs only on the
-frames that need it: computing it on every frame and selecting would cost a
-third match-and-optimize pass on every frame.
+Here the step is three segments cut at the conds (`detect`, `pass1`,
+`pass2`, with `pick` per level), each a captured program
+(utils/program.py), one per arm of a cond. `FusedContext.track` decides
+each cond with a host read (all levels' flags in one transfer; `n_inliers
+< 20`) and replays the arm it names. Each read waits for everything queued
+before it on the stream, mapping programs included, so
+`FusedContext.dispatch`, what the tracker runs, launches the same captured
+graphs as one chain (utils/graph_chain.py) whose IF nodes decide the conds
+on the device: one launch, no read, no wait, the same bits; `track` is its
+reference. The recovery pass runs only on the frames that need it either way:
+computing it on every frame and selecting would cost a third
+match-and-optimize pass on every frame.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from ..ops.extractor import Features
 from ..solvers import pose_opt
 from ..utils.device import resolve_device
 from ..utils.host import upload
-from ..utils.program import Program
+from ..utils.program import Program, unpack
 
 MAX_SLICE = 4096  # local-map slice capacity (points of the covisible set)
 
@@ -140,6 +145,7 @@ class Pass1(NamedTuple):
     t1: torch.Tensor
     n_inl1: torch.Tensor
     n_match1: torch.Tensor
+    recover: torch.Tensor   # () bool: n_inl1 < 20, the recovery pass's test
 
 
 class FusedStep(nn.Module):
@@ -242,7 +248,7 @@ class FusedStep(nn.Module):
         # the end of the step
         return Pass1(feats=feats, xy_un=xy_un, R_prev=R_prev.clone(), t_prev=t_prev.clone(),
                      R0=R0, t0=t0, R1=p1.res.R, t1=p1.res.t, n_inl1=p1.res.n_inliers,
-                     n_match1=p1.n_match)
+                     n_match1=p1.n_match, recover=p1.res.n_inliers < 20)
 
     def pass2(self, p: Pass1, slc: MapSlice, recover: bool) -> FusedOut:
         """Segment 3: the recovery pass when `recover` (pass 1 kept fewer
@@ -297,7 +303,7 @@ class FusedStep(nn.Module):
         picks = [self.pick(k, s, c, o)
                  for k, (s, c, o) in enumerate(zip(det.scores, det.cands, ok))]
         p = self.pass1(det, picks, R_prev, t_prev, vel_R, vel_t, has_vel, slc)
-        return self.pass2(p, slc, bool(p.n_inl1 < 20))
+        return self.pass2(p, slc, bool(p.recover))
 
 
 class FusedContext:
@@ -312,7 +318,8 @@ class FusedContext:
     slow variants, `pass1`, and `pass2` with and without the recovery pass,
     which ends by writing the new pose and velocity into the state. A frame
     is 3 + (levels) replays, the frame copied in and the outputs copied out;
-    `capture` captures every variant ahead of the first frame.
+    `capture` captures every variant ahead of the first frame. `dispatch`
+    runs the same graphs as one chain that decides the arms on the device.
     """
 
     def __init__(self, cfg: SlamConfig, n_map: int = MAX_SLICE, device=None):
@@ -341,16 +348,23 @@ class FusedContext:
         # inlier count (the recovery test)
         self.last_fast_ok = None
         self.last_pass1_inliers = None
-        # the step's programs; the picks write one level's selection into
-        # fixed buffers, so either variant feeds the same pass-1 program
+        # the step's programs, their graphs kept for dispatch's chain; the
+        # picks write one level's selection into fixed buffers, so either
+        # variant feeds the same pass-1 program
         self._picks_out = [(z(q, dt=torch.int64), z(q, dt=torch.bool))
                            for _, q in self.step.plan]
         self._detect = Program(lambda v, img: self.step.detect(img), dev, "detect",
-                               copy_in=True)
-        self._pick = [Program(functools.partial(self._pick_into, k), dev, f"pick{k}")
+                               copy_in=True, keep_graph=True)
+        self._pick = [Program(functools.partial(self._pick_into, k), dev, f"pick{k}",
+                              keep_graph=True)
                       for k in range(len(self.step.plan))]
-        self._pass1 = Program(lambda v, *a: self.step.pass1(*a), dev, "pass1")
-        self._pass2 = Program(self._finish, dev, "pass2", copy_out=True)
+        self._pass1 = Program(lambda v, *a: self.step.pass1(*a), dev, "pass1", keep_graph=True)
+        self._pass2 = Program(self._finish, dev, "pass2", copy_out=True, keep_graph=True)
+        # dispatch's chain of those graphs, and the buffer both arms of the
+        # recovery branch copy their packed outputs into: made at the first
+        # dispatch on a card
+        self._chain = None
+        self._chain_out = None
 
     def _pick_into(self, k, fast_ok, score, cand):
         idx, valid = self.step.pick(k, score, cand, fast_ok)
@@ -442,6 +456,56 @@ class FusedContext:
         self.last_pass1_inliers = int(p1.n_inl1)
         return self._pass2.run(self.last_pass1_inliers < 20, p1, self._slice, self.R,
                                self.t, self.vel_R, self.vel_t, self.has_vel)
+
+    @torch.no_grad()
+    def dispatch(self, image_u8) -> FusedOut:
+        """`track` without a host read: on a card the step's graphs run as
+        one chain (utils/graph_chain.py) in which the device takes each
+        level's pick and the recovery test, so the call only queues work (the
+        frame copied in, one launch, the outputs cloned) and never waits.
+        The same captured graphs as `track`, so the same bits. On the CPU,
+        `track` (a host read there costs no wait)."""
+        if self.device.type != "cuda":
+            return self.track(image_u8)
+        if self._chain is None:
+            self._build_chain()
+        img = (image_u8 if isinstance(image_u8, torch.Tensor)
+               else torch.from_numpy(np.ascontiguousarray(image_u8)))
+        self._detect.stage(img)
+        self._chain.launch()
+        # the hand-written kernels inside `detect` (the FAST launch) ran
+        for add in self._detect.captured(None).launches:
+            add(1)
+        self.last_fast_ok = self.last_pass1_inliers = None
+        buf, layout = self._chain_out
+        return unpack(buf.clone(), layout)
+
+    def _build_chain(self):
+        from ..utils.graph_chain import Arm, Chain, Link
+
+        if not self._captured():
+            self.capture()
+        det = self._detect.captured(None)
+        p1 = self._pass1.captured(None)
+        plain, recover = self._pass2.captured(False), self._pass2.captured(True)
+        if plain.packed[1] != recover.packed[1]:
+            raise RuntimeError("the two arms of pass 2 pack their outputs differently")
+        buf = torch.empty_like(plain.packed[0])
+        links = [Link(None, Arm(det.graph))]
+        for k, prog in enumerate(self._pick):
+            links.append(Link(det.out.fast_ok[k:k + 1], Arm(prog.captured(True).graph),
+                              Arm(prog.captured(False).graph)))
+        links.append(Link(None, Arm(p1.graph)))
+        links.append(Link(p1.out.recover, Arm(recover.graph, (buf, recover.packed[0])),
+                          Arm(plain.graph, (buf, plain.packed[0]))))
+        self._chain = Chain(links, self.device)
+        self._chain_out = (buf, plain.packed[1])
+
+    def _captured(self) -> bool:
+        """Every variant of every program captured (`capture` ran)."""
+        return (len(self._detect.variants) == len(self._pass1.variants) == 1
+                and len(self._pass2.variants) == 2
+                and all(len(p.variants) == 2 for p in self._pick))
 
     @torch.no_grad()
     def capture(self):

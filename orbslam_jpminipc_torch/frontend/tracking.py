@@ -16,8 +16,15 @@ reference's jitted programs), host arrays copied in and results copied
 out; `capture_programs` takes them all ahead of the first frame, frame
 extraction's (`frame.Extraction`) with them, on one memory pool. The
 tracker mutates only its own Frame bookkeeping and the per-point
-visible/found statistics; map growth belongs to local mapping. The steady WORKING state runs the fused step
-(fused_track.py) synchronously.
+visible/found statistics; map growth belongs to local mapping. The steady
+WORKING state runs the fused step (fused_track.py) in two halves:
+`fused_dispatch` queues the step and the read of its results and returns a
+`FusedRecord`; `fused_complete(record)` does the host bookkeeping once the
+read has landed, against the slice the step ran on. The synchronous frame
+loop completes each record at once (`process_fused`); the pipelined one
+(`cfg.pipelined_tracking`, pipeline/system.py) up to `pipeline_depth` frames
+later, and re-tracks a record on the host path (`reprocess_stale`) when the
+host has rewritten the step's state since its dispatch.
 
 Relocalization needs a keyframe database (place recognition,
 map/keyframe_db.py): with one, a LOST frame queries it for candidate
@@ -32,6 +39,7 @@ runs synchronously the hook is None and the mapper is always idle.
 from __future__ import annotations
 
 import enum
+from time import monotonic as _monotonic
 
 import numpy as np
 import torch
@@ -41,11 +49,11 @@ from ..map.map_state import MapState
 from ..ops import matching
 from ..solvers import initializer, pnp, pose_opt
 from ..utils.device import resolve_device
-from ..utils.host import fetch, host_tensor, upload
+from ..utils.host import fetch, fetch_async, host_tensor, upload
 from ..utils.program import GraphPool, ProgramSet
 from ..utils.tracing import get_tracer
 from . import fused_track
-from .frame import Extraction, Frame
+from .frame import _FEAT_FIELDS, Extraction, Frame
 
 MAX_LOCAL_POINTS = fused_track.MAX_SLICE
 
@@ -56,6 +64,47 @@ class TrackState(enum.Enum):
     INITIALIZING = 2
     WORKING = 3
     LOST = 4
+
+
+class FusedRecord:
+    """One dispatched fused step: the frame, the step's outputs on the
+    device, the dispatch-time snapshot of the slice rows (`slice_ids`,
+    `slice_gen`) and of the context's `epoch`, the queued read of every
+    output (`future`: `utils/host.AsyncFetch`) and the dispatch time."""
+
+    __slots__ = ("frame_id", "timestamp", "image", "out",
+                 "slice_ids", "slice_gen", "epoch", "future", "t_dispatch")
+
+    def __init__(self, frame_id, timestamp, image, out, slice_ids, slice_gen, epoch, future):
+        self.frame_id = frame_id
+        self.timestamp = timestamp
+        self.image = image
+        self.out = out
+        self.slice_ids = slice_ids
+        self.slice_gen = slice_gen
+        self.epoch = epoch
+        self.future = future
+        self.t_dispatch = _monotonic()
+
+
+def _frame_tensors(out: fused_track.FusedOut) -> tuple:
+    """The step's features, in `_FEAT_FIELDS` order."""
+    f = out.feats
+    return f.xy, out.xy_un, f.level, f.angle, f.response, f.desc, f.valid
+
+
+def _record_fields(out: fused_track.FusedOut) -> tuple:
+    """The step's outputs a completion reads, in `fused_complete`'s order:
+    pose, pass-2 inliers, bindings, slice flags, then the features."""
+    return (out.R, out.t, out.n_inl2, out.feat_bind, out.flags, *_frame_tensors(out))
+
+
+def _record_frame(rec: FusedRecord, host: tuple) -> Frame:
+    """The record's frame: its features on the device and, from the
+    record's read, on the host."""
+    return Frame(rec.frame_id, rec.timestamp, n_feat=int(host[3].shape[0]),
+                 host=dict(zip(_FEAT_FIELDS, host[5:])),
+                 dev=dict(zip(_FEAT_FIELDS, _frame_tensors(rec.out))))
 
 
 def _scatter_bindings(idx, mask, n: int) -> torch.Tensor:
@@ -368,7 +417,7 @@ class Tracker:
         return self.state
 
     # ------------------------------------------------------------------
-    # the fused WORKING path (fused_track.py), synchronous
+    # the fused WORKING path (fused_track.py)
     # ------------------------------------------------------------------
 
     def fused_usable(self, frame_id: int) -> bool:
@@ -449,26 +498,36 @@ class Tracker:
         if self.fused.slice is None:
             self.refresh_fused_slice()
 
-    def fused_complete(self, frame_id: int, timestamp: float, out: fused_track.FusedOut,
-                       slice_ids: np.ndarray, slice_gen: np.ndarray):
+    def fused_dispatch(self, image, frame_id: int, timestamp: float) -> FusedRecord:
+        """Queue one fused step and the read of its outputs; the host
+        bookkeeping (`fused_complete`) runs when the read has landed,
+        possibly several frames later in the pipelined frame loop. The
+        slice rows and the epoch are taken NOW: the result binds against
+        the slice resident at dispatch. On a card the step runs as one
+        chain whose branches the device decides (`FusedContext.dispatch`),
+        so the call never waits."""
+        fused = self.fused
+        with get_tracer().stage("track_dispatch"):
+            out = fused.dispatch(image)
+            future = fetch_async(*_record_fields(out))
+        return FusedRecord(frame_id, timestamp, image, out, fused.slice_ids, fused.slice_gen,
+                           fused.epoch, future)
+
+    def fused_complete(self, rec: FusedRecord):
         """Host bookkeeping of one fused step: pose writeback, visible/found
-        statistics, match bindings, FSM transition, keyframe decision. The
-        step's results come back in one host read."""
+        statistics, match bindings (to the record's slice rows), FSM
+        transition, keyframe decision. Takes the record's read, waiting for
+        it only when it has not landed."""
         st = self.map
-        R, t, stats, bind, flags = fetch(
-            out.R, out.t,
-            torch.stack([out.n_inl2, out.n_inl1, out.n_match2, out.n_match1]),
-            out.feat_bind, out.flags)
-        n_feat = int(bind.shape[0])
-        dev = {"xy": out.feats.xy, "xy_un": out.xy_un, "level": out.feats.level,
-               "angle": out.feats.angle, "response": out.feats.response,
-               "desc": out.feats.desc, "valid": out.feats.valid}
-        frame = Frame(frame_id, timestamp, n_feat=n_feat, dev=dev)
+        with get_tracer().stage("track_pull"):
+            host = rec.future.result()
+        R, t, n_inl2, bind, flags = host[:5]
+        frame = _record_frame(rec, host)
         frame.R = R.astype(np.float32)
         frame.t = t.astype(np.float32)
-        self.n_inliers = int(stats[0])
+        self.n_inliers = int(n_inl2)
 
-        ids = slice_ids
+        ids, slice_gen = rec.slice_ids, rec.slice_gen
         n_ids = len(ids)
         if n_ids:
             live = st.mp_valid[ids] & (st.mp_gen[ids] == slice_gen)
@@ -524,10 +583,16 @@ class Tracker:
 
     def process_fused(self, image, frame_id: int, timestamp: float):
         """One fused step and its host bookkeeping, back to back."""
-        with get_tracer().stage("track_step"):
-            out = self.fused.track(image)
-        return self.fused_complete(frame_id, timestamp, out,
-                                   self.fused.slice_ids, self.fused.slice_gen)
+        return self.fused_complete(self.fused_dispatch(image, frame_id, timestamp))
+
+    def reprocess_stale(self, rec: FusedRecord):
+        """A record dispatched before a host intervention (a fallback pose
+        fix, LOST, a reset, a relocalization: the context's epoch moved) ran
+        against state the host has since rewritten, so its result is not
+        used. The frame is tracked again on the host path from the step's
+        features; the extraction is not redone."""
+        frame = _record_frame(rec, rec.future.result())
+        return self.process_frame(frame), frame
 
     # ------------------------------------------------------------------
     # initialization (Tracking.cc:360-420 + CreateInitialMap :422-524)

@@ -132,7 +132,8 @@ def load_slam(path: str, slam):
     m._attrs_pending = []
     m._attrs_inflight = None
     slam.pending = []
-    # (the reference also drops its in-flight pipelined-tracking records
-    # here; this package tracks each frame to its end, so it has none)
+    # pipelined tracking records in flight were dispatched against the
+    # pre-load map and slice: drop them, as the reference does
+    slam._inflight.clear()
     slam._last_result = (TrackState.LOST, None)
     return slam

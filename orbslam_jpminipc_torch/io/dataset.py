@@ -306,6 +306,12 @@ class SyntheticSequence:
         self._corners = np.stack([c for c, _ in self.quads]).astype(np.float32)
         self._tex_shape = np.array([tex.shape[:2] for _, tex in self.quads], np.int64)
         self._upload_textures()
+        # on a card frames are drawn on a stream of their own (see `render`),
+        # which first waits for the textures' upload
+        self._stream = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
 
     def __len__(self):
         return len(self.poses)
@@ -434,7 +440,23 @@ class SyntheticSequence:
 
     @torch.no_grad()
     def render(self, i: int) -> torch.Tensor:
-        """Frame i as a (H, W) uint8 tensor on the sequence's device: the
+        """Frame i as a (H, W) uint8 tensor on the sequence's device (see
+        `_draw`). On a card the frame is drawn on the sequence's own stream:
+        the draw reads the host twice (its compaction's size, the depth of
+        the quad stack), and on the caller's stream each read would wait for
+        all the work queued there, a pipelined system's steps included. The
+        caller's stream waits for the frame on the device instead."""
+        if self._stream is None:
+            return self._draw(i)
+        caller = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            img = self._draw(i)
+        caller.wait_stream(self._stream)
+        img.record_stream(caller)
+        return img
+
+    def _draw(self, i: int) -> torch.Tensor:
+        """Frame i on the current stream: the
         reference's painter's-order warps, each pixel's arithmetic as cv2's
         (source coordinate by a fused multiply-add and a float32 division,
         bilinear blend by fused multiply-adds, round half to even). A pixel

@@ -22,15 +22,12 @@ that program, where the kernel runs.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from ..utils import nvcc
 from ..utils.program import count_launch
 
 LAUNCHES = 0
@@ -40,7 +37,6 @@ MAX_LEVELS = 16  # rows of the level table passed by value (csrc/fast.cu)
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "fast.cu"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -66,24 +62,8 @@ _lib = None
 build_log = ""
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME:
-        path = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(path):
-            return path
-    path = shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return path
-
-
 def library_path() -> Path:
-    tag = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"libfast_{tag}.so"
+    return nvcc.library_path(SOURCE, NVCC_FLAGS, "libfast")
 
 
 def build() -> ctypes.CDLL:
@@ -93,18 +73,7 @@ def build() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         so = library_path()
-        build_log = ""
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed with code {proc.returncode}:\n"
-                    f"{proc.stdout}{proc.stderr}")
-            build_log = proc.stdout + proc.stderr
-            os.replace(tmp, so)
+        build_log = nvcc.compile_library(SOURCE, NVCC_FLAGS, so)
         lib = ctypes.CDLL(str(so))
         lib.fast_levels_launch.argtypes = [
             ctypes.POINTER(_Table), ctypes.c_float, ctypes.c_float, ctypes.c_int,

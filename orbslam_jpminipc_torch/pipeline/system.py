@@ -16,8 +16,15 @@ essential graph, optionally followed by global bundle adjustment
 (`cfg.post_loop_gba`, or `global_ba()` by hand). The keyframe trajectory
 (main.cc:226-245, TUM order) comes from `keyframe_trajectory()`.
 
-Refused instead of being run some other way: `pipelined_tracking` (a
-workaround for the reference's device link). With `cfg.distributed_gba`
+With `cfg.pipelined_tracking` (the default, as the reference's) a WORKING
+frame's fused step is dispatched without waiting for the device and the
+host bookkeeping of an earlier frame whose results have landed is done
+instead, so `process` returns the most recently COMPLETED frame, up to
+`cfg.pipeline_depth` frames behind the one just submitted; keyframe
+decisions lag by as much, the reference's mapper-thread lag
+(LocalMapping.cc:52-127). While tracking degrades the depth drops to 1 for
+10 frames. Records dispatched before a host intervention are tracked again
+on the host path; `finish()` completes them all. With `cfg.distributed_gba`
 (the default) and more than one device to shard over
 (`parallel.mesh.mesh_devices`: every card of the process), global BA and
 the essential graph take the sharded solvers of `parallel/`, as the
@@ -25,6 +32,9 @@ reference does on a multi-device mesh; with one device, the single-device
 solvers.
 """
 from __future__ import annotations
+
+from collections import deque
+from time import monotonic as _monotonic
 
 import numpy as np
 
@@ -51,8 +61,6 @@ class Slam:
 
     def __init__(self, cfg: SlamConfig, vocab=None, enable_loop_closing: bool = True,
                  device=None):
-        if cfg.pipelined_tracking:
-            raise ValueError("pipelined_tracking=True is not supported: set it to False")
         self.cfg = cfg
         self.device = resolve_device(device)
         # keyframe feature arrays sized for the 2x init extractor output
@@ -82,7 +90,11 @@ class Slam:
         # stages a frame when cfg.async_mapping, in place of the reference's
         # mapper thread (main.cc:182, LocalMapping.cc:52-127)
         self.pending: list[tuple[int, list[str]]] = []
+        # pipelined tracking: dispatched fused records whose host half has
+        # not run yet, completed strictly in frame order
+        self._inflight: deque = deque()
         self._inlier_peak = 0.0
+        self._latency_frames = 0   # frames left at pipeline depth 1
         self._last_result: tuple[TrackState, Frame | None] = (TrackState.NO_IMAGES_YET, None)
         self._warming = False  # warmup() holds off the LOST auto-reset
 
@@ -90,7 +102,8 @@ class Slam:
 
     def process(self, image, timestamp: float = 0.0) -> tuple[TrackState, Frame]:
         """One frame: a (H, W) uint8 host array or tensor. Returns the
-        tracking state and the frame (its pose in frame.R / frame.t)."""
+        tracking state and the frame (its pose in frame.R / frame.t): this
+        frame's, or pipelined, the most recently completed one's."""
         frame_id = self.frame_count
         self.frame_count += 1
         tr = self.tracker
@@ -98,15 +111,40 @@ class Slam:
         # the inlier count), interrupt BA and finish the mapper's backlog
         # NOW, every degraded frame, so the keyframe the tracker needs is
         # not refused by the busy gate (InterruptBA dynamics,
-        # Tracking.cc:692-698)
+        # Tracking.cc:692-698); and pipeline at depth 1 for the next 10
+        # frames, so that keyframe decisions land at once and dispatches
+        # match a fresh slice
         self._inlier_peak = 0.97 * self._inlier_peak
         if tr.state == TrackState.WORKING:
             self._inlier_peak = max(float(tr.n_inliers), self._inlier_peak)
         degraded = (tr.n_inliers < self.cfg.pipeline_guard_inliers
                     or tr.n_inliers < 0.7 * self._inlier_peak)
-        if degraded and self.pending:
-            with self.tracer.stage("mapping_hard_drain"):
-                self._drain_mapping_hard()
+        if degraded:
+            if self.pending:
+                with self.tracer.stage("mapping_hard_drain"):
+                    self._drain_mapping_hard()
+            self._latency_frames = 10
+        else:
+            self._latency_frames = max(0, self._latency_frames - 1)
+        if self.cfg.pipelined_tracking and tr.fused_usable(frame_id):
+            self._inflight.append(tr.fused_dispatch(image, frame_id, timestamp))
+            # the mapping tick BEFORE completing frames: a completion's
+            # keyframe decision reads the stage queue as the mapper-busy
+            # gate (Tracking.cc:679)
+            self._mapping_tick()
+            depth = 1 if self._latency_frames > 0 else self.cfg.pipeline_depth
+            # bound the decision lag apart from the queue's depth: the head
+            # is completed once it is 3 or more submissions old while a
+            # latency episode is live, or older than 0.15 s of wall clock
+            # (about 5 frame periods at 30 fps)
+            head = self._inflight[0]
+            head_stale = (frame_id - head.frame_id >= 3 and (
+                self._latency_frames > 0 or _monotonic() - head.t_dispatch > 0.15))
+            self._drain_inflight(force=len(self._inflight) > depth or head_stale)
+            return self._last_result
+        # the host path or the synchronous loop: complete every frame in
+        # flight first (frame order)
+        self._drain_inflight(drain_all=True)
         if tr.fused_usable(frame_id):
             # steady state: extraction happens inside the fused step
             with self.tracer.stage("track"):
@@ -205,10 +243,36 @@ class Slam:
         self.mapper.drain_attrs(force=True)
         self.tracker.refresh_fused_slice()
 
+    def _drain_inflight(self, force: bool = False, drain_all: bool = False):
+        """Complete in-flight pipelined records whose reads have landed,
+        strictly in frame order. force: complete at least one (waiting for
+        its read). drain_all: complete every one."""
+        tr = self.tracker
+        while self._inflight:
+            head = self._inflight[0]
+            if not (drain_all or force or head.future.done()):
+                break
+            force = False
+            self._inflight.popleft()
+            if tr.fused is None or head.epoch != tr.fused.epoch:
+                # dispatched against device state the host has since
+                # rewritten (a fallback pose, LOST, a reset, a
+                # relocalization): track the frame again on the host path
+                with self.tracer.stage("track"):
+                    state, frame = tr.reprocess_stale(head)
+                self.tracer.log("reprocess_stale", frame=int(head.frame_id))
+                if state == TrackState.WORKING and self.cfg.fused_tracking:
+                    tr.enter_fused(frame)
+            else:
+                with self.tracer.stage("track"):
+                    state, frame = tr.fused_complete(head)
+            self._after_track(state, frame, head.timestamp)
+
     def finish(self):
-        """Work off every pending mapping stage and apply what is still in
-        flight at the end of a sequence (the reference joins its threads on
-        shutdown, main.cc:222)."""
+        """Complete every frame in flight, work off every pending mapping
+        stage and apply what is still in flight at the end of a sequence
+        (the reference joins its threads on shutdown, main.cc:222)."""
+        self._drain_inflight(drain_all=True)
         while self.pending:
             self._run_pending_stage()
         self.mapper.drain_attrs()
@@ -251,6 +315,7 @@ class Slam:
             # fallback, LOST, relocalization
             self.process(seq.get(i)[0], i / fps)
             self.process(noise, (i + 1) / fps)
+            self._drain_inflight(drain_all=True)
             for j in range(i + 1, i + 4):
                 self.process(seq.get(j)[0], j / fps)
             # steady tracking and the mapping stages
@@ -290,7 +355,9 @@ class Slam:
         self.frame_count = 0
         self.trajectory.clear()
         self.n_loops_closed = 0
+        self._inflight.clear()
         self._inlier_peak = 0.0
+        self._latency_frames = 0
         self._last_result = (TrackState.NO_IMAGES_YET, None)
         tr = self.tracker
         tr.state = TrackState.NO_IMAGES_YET
@@ -308,7 +375,10 @@ class Slam:
         self.tracer.reset()
 
     def reset(self):
-        """Full reset (Tracking::Reset, Tracking.cc:1066-1103)."""
+        """Full reset (Tracking::Reset, Tracking.cc:1066-1103). Pipelined
+        records in flight are kept: the context's epoch moves, so each is
+        tracked again on the host path (initialization): they are real
+        camera frames the reset must not swallow."""
         cfg = self.cfg
         self.map = MapState.create(cfg.max_kf, cfg.max_mp, 2 * cfg.n_features, cfg.max_obs,
                                    device=self.device)

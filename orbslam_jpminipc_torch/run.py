@@ -93,11 +93,6 @@ def main(argv=None):
         cfg.n_features = args.n_features
     else:
         cfg = SlamConfig(n_features=args.n_features)
-    # the reference's default pipelines its tracking (a workaround for its
-    # device link); this package tracks each frame to its end and refuses
-    # the option
-    cfg.pipelined_tracking = False
-
     gt = None
     if args.dataset.startswith("synthetic"):
         traj = args.dataset.split(":")[1] if ":" in args.dataset else "xyz"
@@ -121,16 +116,29 @@ def main(argv=None):
         slam.warmup()
         print(f"warmup (program capture): {time.time() - t_w:.1f}s", file=sys.stderr)
 
+    # pipelined, `slam.process` returns the most recently COMPLETED frame,
+    # up to pipeline_depth behind the image just submitted: the overlay is
+    # drawn on the image that frame was tracked on, kept in a small
+    # frame_id -> image ring
+    viz_ring: dict = {}
+
     def refresh_viz(img, frame, state):
-        """FramePublisher/MapPublisher refresh (src/main.cc:210-218). The
-        system tracks each frame to its end, so `frame` is the image's own."""
+        """FramePublisher/MapPublisher refresh (src/main.cc:210-218)."""
         if viz_dir is None:
             return
         from .io.png import write_bgr
         from .io.viz import draw_frame, draw_map_topdown
 
-        if frame is not None:
-            host = img.cpu().numpy() if hasattr(img, "cpu") else np.asarray(img)
+        # the image just submitted got frame id frame_count - 1 (the dataset
+        # index differs in realtime mode, where dropped frames never reach
+        # slam.process)
+        fid = slam.frame_count - 1
+        viz_ring[fid] = img
+        for k in [k for k in viz_ring if k < fid - 2 * cfg.pipeline_depth]:
+            del viz_ring[k]
+        if frame is not None and frame.frame_id in viz_ring:
+            shown = viz_ring[frame.frame_id]
+            host = shown.cpu().numpy() if hasattr(shown, "cpu") else np.asarray(shown)
             write_bgr(os.path.join(viz_dir, "frame.png"),
                       draw_frame(host, frame, state, n_kf=slam.n_keyframes, n_mp=slam.n_points))
         write_bgr(os.path.join(viz_dir, "map.png"), draw_map_topdown(slam.map))
@@ -181,7 +189,8 @@ def main(argv=None):
                     file=sys.stderr,
                 )
         wall = time.time() - t0
-        print(f"processed {n} frames in {wall:.1f}s ({n / wall:.1f} fps), "
+        print(f"processed {n} frames in {wall:.1f}s ({n / wall:.1f} fps, "
+              f"{'pipelined' if cfg.pipelined_tracking else 'synchronous'} tracking), "
               f"{slam.n_keyframes} KFs, {slam.n_points} points, "
               f"{slam.n_loops_closed} loops closed")
 

@@ -46,6 +46,7 @@ eager function on the same inputs.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, NamedTuple
 
 import torch
@@ -101,7 +102,7 @@ def _views(buf: torch.Tensor, layout: _Layout) -> list:
     return [buf[off:off + n].view(dtype).view(shape) for off, n, dtype, shape in layout.slots]
 
 
-def _unpack(buf: torch.Tensor, layout: _Layout):
+def unpack(buf: torch.Tensor, layout: _Layout):
     return pytree.tree_unflatten(_views(buf, layout), layout.spec)
 
 
@@ -133,16 +134,20 @@ class Program:
 
     `fn` returns a tensor or a tuple, list, dict or NamedTuple of tensors
     (or None). `variant` is any hashable value the function branches on in
-    Python; each value is a program of its own.
+    Python; each value is a program of its own. With `keep_graph` each
+    captured graph is kept after instantiation, for a chain of programs
+    (utils/graph_chain.py) to add to a graph of its own.
     """
 
     def __init__(self, fn, device, name: str, copy_in: bool = False,
-                 copy_out: bool = False, pool: GraphPool | None = None):
+                 copy_out: bool = False, pool: GraphPool | None = None,
+                 keep_graph: bool = False):
         self.fn = fn
         self.device = torch.device(device)
         self.name = name
         self.copy_in = copy_in
         self.copy_out = copy_out
+        self.keep_graph = keep_graph
         self._graphs: dict = {}
         self._inputs: list | None = None   # the leaves read in place
         self.pool = pool if pool is not None else GraphPool()
@@ -191,7 +196,7 @@ class Program:
             if not self.copy_out:
                 return out
             buf, layout = _pack(out)
-            return _unpack(buf.clone(), layout)
+            return unpack(buf.clone(), layout)
         cap = self._graphs.get(variant)
         if cap is None:
             cap = self._capture(variant, inputs)
@@ -201,7 +206,7 @@ class Program:
         if cap.packed is None:
             return cap.out
         buf, layout = cap.packed
-        return _unpack(buf.clone(), layout)
+        return unpack(buf.clone(), layout)
 
     def capture(self, variant, *inputs):
         """Capture `variant` ahead of its first call, without running it
@@ -209,6 +214,17 @@ class Program:
         inputs = self._stage(inputs)
         if self.device.type == "cuda" and variant not in self._graphs:
             self._capture(variant, inputs)
+
+    def stage(self, *inputs):
+        """Copy the inputs in (or check them) without running anything: for
+        a caller that launches the captured graph inside a larger one
+        (utils/graph_chain.py)."""
+        self._stage(inputs)
+
+    def captured(self, variant) -> _Captured:
+        """The capture of `variant` (its graph, outputs, packed outputs and
+        launch counters); raises KeyError when it is not captured."""
+        return self._graphs[variant]
 
     def _capture(self, variant, inputs) -> _Captured:
         global _noted
@@ -219,15 +235,24 @@ class Program:
             with torch.cuda.stream(stream):
                 self.fn(variant, *inputs)
             torch.cuda.current_stream().wait_stream(stream)
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
             launches = []
             _noted = launches
+            # no garbage collection during the capture: a collected cycle
+            # holding a graph (an older system's programs) would destroy
+            # it, a call that invalidates the capture
+            gc_on = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.graph(graph, pool=self.pool.handle(), stream=stream):
                     out = self.fn(variant, *inputs)
                     packed = _pack(out) if self.copy_out else None
             finally:
                 _noted = None
+                if gc_on:
+                    gc.enable()
+            if self.keep_graph:
+                graph.instantiate()
         cap = _Captured(graph, out, packed, launches)
         self._graphs[variant] = cap
         return cap

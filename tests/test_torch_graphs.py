@@ -8,7 +8,9 @@ call survive the next), the state the step feeds forward against the eager
 step's, `Slam.warmup()` leaving a fresh system, and a warmed system against
 the JAX package's recorded outcome on frames 0-27 of the system fixture (the
 fixture's shipping config: ~5 min on the CPU). The `gpu`-marked tests capture
-on the card and hold the replays to equal bits against the eager runs."""
+on the card and hold the replays to equal bits against the eager runs, and
+the pipelined dispatch (the step's graphs as one chain whose branches the
+device decides) to the synchronous step."""
 import json
 import os
 
@@ -25,6 +27,7 @@ from orbslam_jpminipc_torch.io.dataset import SyntheticSequence
 from orbslam_jpminipc_torch.ops import fast_cuda
 from orbslam_jpminipc_torch.pipeline.system import Slam
 from orbslam_jpminipc_torch.solvers import ba
+from orbslam_jpminipc_torch.utils import graph_chain
 from orbslam_jpminipc_torch.utils.program import Program
 from orbslam_jpminipc_torch.vocab.vocabulary import load_vocabulary
 
@@ -315,6 +318,42 @@ def test_program_captures_and_replays_on_the_card(card):
 
 
 @pytest.mark.gpu
+def test_capture_survives_the_collection_of_older_graphs(card):
+    """A graph of another program whose last holder is a cycle that becomes
+    garbage during a capture (an older system's programs): with the
+    collector set to run at every allocation the capture still completes,
+    as destroying a graph inside it would invalidate it, and replays."""
+    import gc
+
+    x, y = torch.tensor([1.0, -2.0, 3.0]), torch.tensor([0.5, 0.5, -4.0])
+    older = Program(_affine, card, "older", copy_in=True, copy_out=True, keep_graph=True)
+    older.run(2.0, x, y)
+    box = {"captured": older._graphs.pop(2.0)}
+    del older
+
+    def fn(v, a, b):
+        if box and torch.cuda.is_current_stream_capturing():
+            cycle = [box.pop("captured")]
+            cycle.append(cycle)
+            del cycle
+            [[] for _ in range(100)]   # allocations: the collector's chances
+        return _affine(v, a, b)
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        prog = Program(fn, card, "newer", copy_in=True, copy_out=True)
+        first = prog.run(2.0, x, y)
+        again = prog.run(2.0, x, y)
+    finally:
+        gc.set_threshold(*threshold)
+    assert not box
+    for out in (first, again):
+        for k, want in _affine(2.0, x.cuda(), y.cuda()).items():
+            assert torch.equal(out[k], want), k
+
+
+@pytest.mark.gpu
 def test_captured_step_equals_eager_and_counts_fast_replays(card, fixture):
     """The context's captured step against the eager step on the card over
     the fixture's frames: equal bits; one FAST launch a frame, counted at
@@ -378,3 +417,51 @@ def test_local_ba_program_matches_eager_on_the_card(card):
         assert float(want.chi2) < 0.05 * float(ba.bundle_adjust(prob, iterations=0).chi2)
         assert abs(float(got.chi2) - float(want.chi2)) <= 1e-3 * abs(float(want.chi2))
         assert int((got.obs_outlier != want.obs_outlier).sum()) <= 0.002 * prob.obs_kf.shape[0]
+
+
+@pytest.mark.gpu
+def test_dispatch_equals_the_synchronous_step_on_the_card(card, fixture):
+    """The step's chain (`FusedContext.dispatch`) against its segments with
+    their host reads (`track`) on the tracking fixture's frames fed forward,
+    a low-texture frame (levels take the slow pick) and a frame from a
+    perturbed pose (the recovery pass): equal bits, one FAST launch and one
+    branch kernel per branch a frame, and no host synchronisation."""
+    fx = fixture
+    cfg = SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=1000)
+    flat = np.full_like(fx["images"][0], 128)
+    flat[192:288, 272:368] = fx["images"][0][192:288, 272:368]
+    turn = np.array([[np.cos(0.14), -np.sin(0.14), 0], [np.sin(0.14), np.cos(0.14), 0],
+                     [0, 0, 1]], np.float32)
+    frames = [(img, None) for img in fx["images"]] + [(flat, None), (fx["images"][0], turn)]
+    runs = []
+    for name in ("track", "dispatch"):
+        ctx = tfused.FusedContext(cfg, device=card)
+        ctx.set_slice(fx["slice_buf"])
+        ctx.capture()
+        ctx.set_pose(fx["R0"], fx["t0"], velocity=(fx["vel_R0"], fx["vel_t0"]))
+        outs, slow, recovered = [], 0, 0
+        for img, rot in frames:
+            if rot is not None:
+                ctx.set_pose(rot @ fx["R0"], fx["t0"] + np.array([0.1, 0, 0], np.float32))
+            img = torch.as_tensor(img).to(card)
+            n_fast, n_branch = fast_cuda.LAUNCHES, graph_chain.LAUNCHES
+            if name == "track":
+                out = ctx.track(img)
+                slow += not all(ctx.last_fast_ok)
+                recovered += ctx.last_pass1_inliers < 20
+            else:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = ctx.dispatch(img)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                assert graph_chain.LAUNCHES == n_branch + len(ctx.step.plan) + 1
+            assert fast_cuda.LAUNCHES == n_fast + 1
+            outs.append(_fields(out))
+        runs.append(outs)
+        if name == "track":
+            assert slow >= 1 and recovered >= 1   # both arms of both branches ran
+    for want, got in zip(*runs):
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k

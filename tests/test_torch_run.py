@@ -82,7 +82,8 @@ def test_run_settings_with_harris_score(tmp_path, capsys):
     assert SlamConfig.from_yaml(str(yaml)).use_harris_score
     slam = run.main(BASE + ["--out", str(tmp_path / "kf.txt"), "--settings", str(yaml),
                             "--realtime"])
-    assert slam.cfg.use_harris_score and not slam.cfg.pipelined_tracking
+    # the command line runs the package's default frame loop, pipelined
+    assert slam.cfg.use_harris_score and slam.cfg.pipelined_tracking
     assert "processed" in capsys.readouterr().out
 
 

@@ -199,16 +199,21 @@ def test_package_sources_import_neither_jax_nor_cv2():
 
 @pytest.mark.parametrize("override", [dict(pipelined_tracking=True), "loop_closing"])
 def test_unported_options_are_refused(override, jax_vocab):
-    """Pipelined tracking is refused. Loop closing (asked for by giving a
-    vocabulary without `enable_loop_closing=False`) no longer is: the
-    default call builds a closer wired to the mapper's mirror, without a
-    vocabulary there is none, and without a card the call fails on the
-    device, not on loop closing."""
+    """Neither option is refused any more. Pipelined tracking, the default:
+    `Slam(SlamConfig(...))` constructs on the CPU with nothing in flight
+    (tests/test_torch_pipelined.py drives it). Loop closing (asked for by
+    giving a vocabulary without `enable_loop_closing=False`): the default
+    call builds a closer wired to the mapper's mirror, without a vocabulary
+    there is none, and without a card the call fails on the device, not on
+    loop closing."""
     kw = dict(CFG_KW)
     if override != "loop_closing":
         kw.update(override)
-        with pytest.raises(ValueError, match="pipelined_tracking"):
-            Slam(SlamConfig(**kw), device="cpu")
+        assert SlamConfig().pipelined_tracking   # the default
+        slam = Slam(SlamConfig(**kw), device="cpu")
+        assert slam.cfg.pipelined_tracking and len(slam._inflight) == 0
+        assert slam.process(np.zeros((480, 640), np.uint8))[0] == TrackState.NOT_INITIALIZED
+        assert len(slam._inflight) == 0
         return
     vocab = vocab_from_numpy(jax_vocab, device="cpu")
     slam = Slam(SlamConfig(**kw), vocab=vocab, device="cpu")     # the default asks for it
