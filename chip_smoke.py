@@ -19,7 +19,12 @@ Phases (any failure raises, so the script exits non-zero):
                  times per frame (CUDA events, warm, median of 20 batches of
                  10; device time from torch.profiler): one launch, 8
                  one-level launches, the plain version; and the kernel's
-                 bound from the level shapes
+                 bound from the level shapes. Then `small_linalg` (the
+                 solvers' Jacobi kernel) on every call of one `solve_pnp`,
+                 `solve_sim3` and `initialize` and on degenerate inputs,
+                 against its plain version and torch.linalg in float64,
+                 timed with its bound (`kernel_small_linalg`); and what
+                 EPnP's N = 1 case costs on every set (`epnp_n1_cost`)
   4. slice       the fused step (FusedContext/FusedStep) on the card over the
                  fixture's frames from the JAX reference's recorded state,
                  checked against the reference's recorded outputs; the FAST
@@ -65,7 +70,9 @@ Phases (any failure raises, so the script exits non-zero):
                  local BA, culling), the reference's RANSAC minimal sets
                  injected, then `finish()`; held to the JAX reference's
                  recorded outcome (states, keyframe and point counts, camera
-                 centres, keyframe ATE); the FAST kernel must run once on
+                 centres, keyframe ATE; the initialization's frame, pose and
+                 map, which the Jacobi kernel's SVDs decide, within the
+                 initializer test's bounds); the FAST kernel must run once on
                  each initialization frame and each fused frame. Reports ms
                  per `process` call (initialization / keyframe / other
                  frames), the tracer's stage summary, host reads per frame
@@ -73,7 +80,8 @@ Phases (any failure raises, so the script exits non-zero):
                  takes the same frames counting host synchronisations per
                  frame (CUDA sync debug mode), and is put back as a fresh
                  one (`Slam._restart`, what warmup ends with); the two runs
-                 show how far runs on the card agree. Last, the first system's map takes frames 28-32 of
+                 show how far runs on the card agree (both runs' keyframe
+                 ATE). Last, the first system's map takes frames 28-32 of
                  the sequence with each mapping stage run alone under
                  torch.profiler (`stage_profile`): per `*_d`/`*_m` stage,
                  ms to the end of its device work, kernels, kernel time and
@@ -188,9 +196,9 @@ Phases (any failure raises, so the script exits non-zero):
                  tracked and kf-ATE <= 2 mm
  11. vocab       the vocabulary trainer and the builders on the card. In a
                  process of its own, `python -m orbslam_jpminipc_torch.vocab.train`
-                 at its defaults (flat, 8192 words; 60 frames of xyz and loop
-                 for each of 8 seeds rendered on the card, every 4th frame
-                 extracted: 240 frames); reports the descriptors, seconds by
+                 at its defaults but 4 of its 8 seeds (flat, 8192 words; 60
+                 frames of xyz and loop for each seed rendered on the card,
+                 every 4th frame extracted: 120 frames); reports the descriptors, seconds by
                  part (render, extract, k-medians) and the FAST launches,
                  which must be one a training frame. `build_vocabulary` on
                  the card against the CPU on 20,000 of those descriptors at
@@ -266,6 +274,8 @@ SYS_KF_TOL = 2            # keyframes, absolute
 SYS_POINTS_REL = 0.10     # map points, relative
 SYS_CENTRE_TOL = 1e-2     # camera centre per frame (median depth is 1)
 SYS_ATE_MARGIN = 5e-3     # keyframe ATE above the reference's
+SYS_INIT_R_TOL = 1e-4     # the initial pose's R and t against the reference's
+SYS_INIT_T_TOL = 1e-2     # (tests/test_torch_initializer.py's POSE_TOL, T_TOL)
 # the forced-loss run against the reference's recorded outcome on the card
 RELOC_STATE_MISMATCH_MAX = 2   # frames whose state may differ
 RELOC_WITHIN_FRAMES = 20       # WORKING again within this many frames of the loss
@@ -336,9 +346,11 @@ FP32_OPS_PER_S = 67e12
 FAST_OPS_PER_PIXEL = 2 * 40 + 3 + 3 * 3 + 2 + 1 + 1 + 3 + 8 + 7
 EDGE = 19                 # the extractor's border (EDGE_THRESHOLD)
 # the vocab phase: vocab/train.py's defaults (flat, 8192 words, 60 frames of
-# xyz and loop for each of 8 seeds, every 4th frame), the card's k-medians
-# against the CPU's on a subset (equal bytes), run.py with the trained file
-VOCAB_DEFAULT_FRAMES, VOCAB_DEFAULT_SEEDS, VOCAB_DEFAULT_WORDS = 60, 8, 8192
+# xyz and loop for each seed, every 4th frame) at 4 of its 8 seeds (a depth
+# cut for the script's 1,000 s: rendering took 62 s of the 8 seeds' 76 s),
+# the card's k-medians against the CPU's on a subset (equal bytes), run.py
+# with the trained file
+VOCAB_DEFAULT_FRAMES, VOCAB_TRAIN_SEEDS, VOCAB_DEFAULT_WORDS = 60, 4, 8192
 VOCAB_SUBSET = 20000
 VOCAB_RUN_FRAMES = 60
 VOCAB_RUN_TRACKED_MIN = 58
@@ -381,6 +393,25 @@ def _patch(obj, name, make):
             delattr(obj, name)
 
 
+def _labelled(torch, label, reads=None):
+    """make(orig): `orig` run inside a torch.profiler range named `label`
+    (`_launches_in` counts the host's launches made inside such ranges);
+    with `reads` (a list), the batched host reads of each call are
+    appended to it."""
+    from orbslam_jpminipc_torch.utils import host
+
+    def make(orig):
+        def wrapped(*a, **k):
+            r0 = host.READS
+            with torch.profiler.record_function(label):
+                out = orig(*a, **k)
+            if reads is not None:
+                reads.append(host.READS - r0)
+            return out
+        return wrapped
+    return make
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -393,20 +424,22 @@ def phase_device(torch):
 
 
 def phase_build(fast_cuda):
-    """Both CUDA sources of the main path, one nvcc each, started together."""
+    """The three CUDA sources of the main path, one nvcc each, started
+    together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from orbslam_jpminipc_torch.ops import small_linalg_cuda
     from orbslam_jpminipc_torch.utils import graph_chain
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for job in [pool.submit(fast_cuda.build), pool.submit(graph_chain.build)]:
+    libs = (fast_cuda, graph_chain, small_linalg_cuda)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for job in [pool.submit(lib.build) for lib in libs]:
             job.result()
     dt = time.perf_counter() - t0
-    log(f"[build] {fast_cuda.library_path().name} and {graph_chain.library_path().name} "
-        f"in {dt:.2f} s")
-    for line in fast_cuda.build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
+    log(f"[build] {', '.join(lib.library_path().name for lib in libs)} in {dt:.2f} s")
+    for line in (fast_cuda.build_log + small_linalg_cuda.build_log).splitlines():
+        if "registers" in line or "smem" in line or "spill" in line or "entry function" in line:
             log(f"[build] {line.strip()}")
     return dt
 
@@ -607,6 +640,291 @@ def _fast_bound(levels):
             "bytes_ms": t_bytes, "operations_ms": t_ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# ---- the small-matrix Jacobi kernel (csrc/small_linalg.cu) -------------------
+
+SL_TOL = 5e-6           # invariants, relative to |A| (tests/test_torch_small_linalg.py: 2e-6 on the CPU)
+
+
+def _sl_flops(kind, n, sweeps):
+    """The operations of `sweeps` matrix-sweeps (solvers/small_linalg.py:
+    SWEEPS): per round of a sweep, m / 2 rotations (~25 operations each,
+    sqrt and divisions counted as one) applied to A's and V's columns and
+    A's rows (eigh: 9 m^2), or to U's n-row and V's m-row columns after
+    three n-long dot products (svd); m - 1 rounds a sweep, m = n rounded up
+    to even. The kernel runs every pair of a round, rotating or not."""
+    m = n + n % 2
+    per_round = (9 * m * m + 25 * m // 2) if kind == "eigh" else (m // 2) * (6 * n + 25 + 6 * n + 6 * m)
+    return sweeps * (m - 1) * per_round
+
+
+def _sl_bound(kind, batch, n, sweeps):
+    """The least time for one call: its input read once and its outputs
+    written once as float32 over the memory rate, or its operations
+    (`_sl_flops`, from the plain version's sweeps on the same input) over
+    the float32 rate, whichever is larger."""
+    out = batch * (n + n * n) if kind == "eigh" else batch * (2 * n * n + n)
+    n_bytes = 4 * (batch * n * n + out)
+    ops = _sl_flops(kind, n, sweeps)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "operations": ops, "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _sl_main_path_calls(torch):
+    """The small-matrix calls of the main path's solvers, recorded from one
+    call each on the card on seeded scenes: `solve_pnp` (256 hypotheses
+    over 1000 points, 600 on a pose; a relocalization candidate's RANSAC),
+    `solve_sim3` (128 hypotheses over 300 pairs) and `initialize` (200
+    hypotheses over 600 matches of two views). Each call: (site, kind, its
+    input, its keyword arguments)."""
+    from orbslam_jpminipc_torch.solvers import epnp, initializer, pnp, sim3solver
+
+    calls, site = [], {"now": None}
+
+    def recorder(fn, kind):
+        def wrapped(A, *a, **kw):
+            # as a flat batch of matrices (EPnP's four beta cases come stacked)
+            calls.append((site["now"], kind, A.detach().reshape(-1, *A.shape[-2:]).clone(), kw))
+            return fn(A, *a, **kw)
+        return wrapped
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dev = "cuda"
+    K4 = torch.tensor([500.0, 500.0, 320.0, 240.0], device=dev)
+    rnd = lambda *s: torch.rand(s, generator=gen, device=dev)
+    stack = contextlib.ExitStack()
+    for mod, names in ((epnp, ("eigh_small", "svd_small")), (sim3solver, ("eigh_small",)),
+                       (initializer, ("eigh_small", "svd_small"))):
+        for name in names:
+            stack.enter_context(_patch(mod, name, lambda f, kind=name.split("_")[0]: recorder(f, kind)))
+    with stack, torch.no_grad():
+        # PnP: points in front of the camera, 600 of 1000 on the pose
+        xw = rnd(1000, 3) * 2 - 1 + torch.tensor([0.0, 0.0, 4.0], device=dev)
+        uv = 500.0 * xw[:, :2] / xw[:, 2:] + torch.tensor([320.0, 240.0], device=dev)
+        mask = torch.arange(1000, device=dev) < 600
+        uv = torch.where(mask[:, None], uv, uv + 40.0)
+        site["now"] = "solve_pnp"
+        pnp.solve_pnp(pnp.sample_minimal_sets(mask, pnp.N_HYP, gen), xw, uv, mask, K4,
+                      torch.full((1000,), 5.991, device=dev))
+        # Sim3: camera-1 points and their images in two views under a Sim3
+        p1 = rnd(300, 3) * 2 - 1 + torch.tensor([0.0, 0.0, 5.0], device=dev)
+        ang = torch.tensor(0.1, device=dev)
+        c, s_ = torch.cos(ang), torch.sin(ang)
+        z0, o1 = torch.zeros((), device=dev), torch.ones((), device=dev)
+        R = torch.stack([torch.stack([c, -s_, z0]), torch.stack([s_, c, z0]),
+                         torch.stack([z0, z0, o1])])
+        p2 = (0.8 * (p1 - torch.tensor([0.1, 0.0, 0.2], device=dev))) @ R
+        pmask = torch.arange(300, device=dev) < 250
+        proj = lambda p: 500.0 * p[:, :2] / p[:, 2:] + torch.tensor([320.0, 240.0], device=dev)
+        gate = torch.full((300,), 9.21, device=dev)
+        site["now"] = "solve_sim3"
+        sim3solver.solve_sim3(sim3solver.sample_minimal_sets(pmask, sim3solver.N_HYP, gen),
+                              p1, p2, proj(p1), proj(p2), pmask, K4, gate, gate)
+        # two views of 600 points: frame 1 at the origin, frame 2 moved
+        X = rnd(600, 3) * 4 - 2 + torch.tensor([0.0, 0.0, 6.0], device=dev)
+        t2 = torch.tensor([0.4, 0.05, 0.0], device=dev)
+        site["now"] = "initialize"
+        initializer.initialize(initializer.sample_minimal_sets(gen, torch.ones(600, dtype=torch.bool, device=dev), 200),
+                               proj(X), proj(X @ R.T + t2), torch.ones(600, dtype=torch.bool, device=dev), K4)
+    torch.cuda.synchronize()
+    return calls
+
+
+def _sl_degenerate(torch):
+    """Inputs the scenes above may not reach: repeated eigenvalues (12x12),
+    coplanar point scatters (3x3, LAPACK signs), a planar set's C (rank 3
+    under the 1e-6 cut), and NaN rows (12x12 and 3x3)."""
+    g = np.random.default_rng(12)
+    Q = np.linalg.qr(g.normal(size=(16, 12, 12)))[0]
+    lam = np.concatenate([[1.0, 1.0, 1.0], 2.0 + np.arange(9)])
+    rep = ((Q * lam) @ np.swapaxes(Q, 1, 2)).astype(np.float32)
+    pts = g.normal(size=(64, 12, 3))
+    pts[..., 2] = 0.3 * pts[..., 0] - 0.2 * pts[..., 1]
+    d = pts - pts.mean(1, keepdims=True)
+    cop = np.einsum("bmi,bmj->bij", d, d).astype(np.float32)
+    C = []
+    for _ in range(32):
+        p = g.normal(size=(12, 3)) * [2.0, 1.5, 1.0] + [0.1, -0.2, 4.0]
+        p[:, 2] = 4.0
+        c0 = p.mean(0)
+        lam3, vec = np.linalg.eigh((p - c0).T @ (p - c0))
+        k = np.sqrt(np.maximum(lam3, 1e-12) / 12)
+        ctrl = np.concatenate([c0[None], c0 + (k[::-1, None] * vec.T[::-1])])
+        C.append(np.concatenate([ctrl.T, np.ones((1, 4))]))
+    C = np.array(C, np.float32)
+    nan12 = rep[:8].copy()
+    nan12[[2, 5], 3, 4] = np.nan
+    nan3 = g.normal(size=(8, 3, 3)).astype(np.float32)
+    nan3[[1, 6], 0, 0] = np.nan
+    t = lambda a: torch.as_tensor(a).cuda()
+    return [("repeated", "eigh", t(rep), {}), ("coplanar", "eigh", t(cop), {"lapack_signs": True}),
+            ("planar_C", "svd", t(C), {}), ("nan_rows", "eigh", t(nan12), {}),
+            ("nan_rows", "svd", t(nan3), {})]
+
+
+def _sl_hold(torch, kind, A, kw):
+    """The kernel against its plain version and the library in float64 on
+    one input: the worst invariant (relative to |A|), and the rank the
+    pseudo-inverse keeps where the input is C."""
+    from orbslam_jpminipc_torch.ops import small_linalg_cuda as k
+    from orbslam_jpminipc_torch.solvers import small_linalg as plain
+
+    n = A.shape[-1]
+    bad = ~torch.isfinite(A).flatten(-2).all(-1)
+    good = ~bad
+    A64 = A.double()
+    norm = torch.linalg.matrix_norm(A64[good]).clamp_min(1e-30)
+    eye = torch.eye(n, dtype=torch.float64, device=A.device)
+    row = {"batch": int(A.shape[0]), "n": n}
+    sweeps0 = dict(plain.SWEEPS)
+    if kind == "eigh":
+        w, V = (x.double() for x in k.eigh_small(A, **kw))
+        wp, Vp = (x.double() for x in plain.eigh_small(A, **kw))
+        row["sweeps"] = plain.SWEEPS["eigh"] - sweeps0["eigh"]
+        Ag, wg, Vg = A64[good], w[good], V[good]
+        res = (torch.linalg.matrix_norm(Ag @ Vg - Vg * wg[:, None, :]) / norm).max()
+        orth = (Vg.mT @ Vg - eye).abs().amax((-2, -1)).max()
+        wl = torch.linalg.eigvalsh(Ag)
+        # the sign convention, on the columns whose eigenvalue stands apart
+        # (1e-3 of |A| from the others): in a cluster the vectors are any
+        # basis of its space, and the two versions' rounding picks another
+        gap = (wl[:, :, None] - wl[:, None, :]).abs() + torch.eye(n, device=A.device) * 1e30
+        apart = gap.amin(-1) > 1e-3 * norm[:, None]
+        agree = torch.einsum("bij,bij->bj", Vg, Vp[good]) > 0
+        row.update(residual=float(res), orthogonality=float(orth),
+                   dw_plain=float(((wg - wp[good]).abs().amax(-1) / norm).max()),
+                   dw_library=float(((wg - wl).abs().amax(-1) / norm).max()),
+                   same_signs=float(agree[apart].float().mean()) if apart.any() else 1.0)
+        out_bad = (~torch.isfinite(w[bad])).all() and (~torch.isfinite(V[bad])).all()
+    else:
+        U, S, Vt = (x.double() for x in k.svd_small(A))
+        Sp = plain.svd_small(A)[1].double()
+        row["sweeps"] = plain.SWEEPS["svd"] - sweeps0["svd"]
+        Ug, Sg, Vtg = U[good], S[good], Vt[good]
+        rec = (torch.linalg.matrix_norm(Ug * Sg[:, None, :] @ Vtg - A64[good]) / norm).max()
+        orth = max(float((Ug.mT @ Ug - eye).abs().max()), float((Vtg @ Vtg.mT - eye).abs().max()))
+        Sl = torch.linalg.svdvals(A64[good])
+        rank = (Sg > 1e-6 * Sg[:, :1]).sum(-1)
+        row.update(reconstruction=float(rec), orthogonality=orth,
+                   ds_plain=float(((Sg - Sp[good]).abs().amax(-1) / norm).max()),
+                   ds_library=float(((Sg - Sl).abs().amax(-1) / norm).max()),
+                   rank_1e6=sorted(set(rank.tolist())),
+                   rank_equal_plain=bool(torch.equal(rank, (Sp[good] > 1e-6 * Sp[good][:, :1]).sum(-1))),
+                   rank_equal_library=bool(torch.equal(rank, (Sl > 1e-6 * Sl[:, :1]).sum(-1))))
+        out_bad = (~torch.isfinite(U[bad])).all() and (~torch.isfinite(S[bad])).all()
+    row["nan_rows"] = int(bad.sum())
+    row["nan_rows_give_nan"] = bool(out_bad) if bad.any() else None
+    inv = [v for key, v in row.items() if key in (
+        "residual", "orthogonality", "dw_plain", "dw_library", "reconstruction", "ds_plain",
+        "ds_library")]
+    row["worst"] = max(inv)
+    row["ok"] = (row["worst"] <= SL_TOL and row.get("rank_equal_plain", True)
+                 and row.get("rank_equal_library", True) and row["nan_rows_give_nan"] is not False
+                 and row.get("same_signs", 1.0) >= 0.99)
+    return row
+
+
+def epnp_n1_cost(torch, smi):
+    """What EPnP's N = 1 case (its planar departure, solvers/epnp.py) adds on
+    every set, planar or not: the poses and reprojection errors of the four
+    beta cases against those of the reference's three alone, on a
+    relocalization candidate's 256 minimal sets (the scene of
+    `_sl_main_path_calls`), device time by torch.profiler; and the whole
+    `epnp_pose` on the same sets."""
+    from orbslam_jpminipc_torch.solvers import epnp, pnp
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xw = (torch.rand((1000, 3), generator=gen, device=dev) * 2 - 1
+          + torch.tensor([0.0, 0.0, 4.0], device=dev))
+    uv = 500.0 * xw[:, :2] / xw[:, 2:] + torch.tensor([320.0, 240.0], device=dev)
+    mask = torch.arange(1000, device=dev) < 600
+    sets = pnp.sample_minimal_sets(mask, pnp.N_HYP, gen)
+    xs, us = xw[sets], uv[sets]
+    w = torch.ones(sets.shape, device=dev)
+    K4 = torch.tensor([500.0, 500.0, 320.0, 240.0], device=dev)
+    with torch.no_grad():
+        V, alphas, betas, planar = epnp._beta_cases(xs, us, w, K4)
+        three = _device_ms(torch, lambda: epnp._pose_errors(betas[:3], V, alphas, xs, us, w, K4), n=5)
+        four = _device_ms(torch, lambda: epnp._pose_errors(betas, V, alphas, xs, us, w, K4), n=5)
+        whole = _device_ms(torch, lambda: epnp.epnp_pose(xs, us, w, K4), n=5)
+    res = {"sets": int(sets.shape[0]), "planar_sets": int(planar.sum()),
+           "three_cases_device_ms": three, "four_cases_device_ms": four,
+           "added_device_ms": four - three, "epnp_pose_device_ms": whole}
+    log(f"[kernel] {smi}: EPnP's N = 1 case on {res['sets']} minimal sets ({res['planar_sets']} "
+        f"planar): the cases' poses and errors {four:.4f} ms of device time against {three:.4f} "
+        f"for the reference's three (+{four - three:.4f} ms); the whole epnp_pose {whole:.4f} ms")
+    return res
+
+
+def kernel_small_linalg(torch, smi):
+    """`small_linalg` on the card: every call of the main path's solvers
+    (`_sl_main_path_calls`) and the degenerate inputs held to the plain
+    version and to torch.linalg in float64 (`_sl_hold`); then the calls of
+    one `solve_pnp` (a relocalization candidate's EPnP, 8 launches) timed
+    as one: the kernel (CUDA events, and the profiler's device time), the
+    plain version, the library call on the same float32 inputs
+    (`library_ms`: torch.linalg.eigh / svd / pinv, which also read the host)
+    and the bound (`_sl_bound`, from the plain version's sweeps)."""
+    from orbslam_jpminipc_torch.ops import small_linalg_cuda as k
+    from orbslam_jpminipc_torch.solvers import small_linalg as plain
+
+    calls = _sl_main_path_calls(torch)
+    rows = []
+    for site, kind, A, kw in calls + _sl_degenerate(torch):
+        row = _sl_hold(torch, kind, A, kw)
+        row.update(site=site, kind=kind, **{k_: v for k_, v in kw.items()})
+        row.update(_sl_bound(kind, row["batch"], row["n"], row["sweeps"]))
+        rows.append(row)
+    shapes = sorted({(r["site"], r["kind"], r["n"], r["batch"]) for r in rows})
+    log(f"[kernel] small_linalg: {len(rows)} calls held against the plain version and "
+        f"torch.linalg in float64 (bound {SL_TOL} of |A|), shapes {shapes}: "
+        f"{json.dumps(rows)}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"[kernel] small_linalg off its plain version: {bad}")
+    pnp_calls = [(kind, A, kw) for site, kind, A, kw in calls if site == "solve_pnp"]
+
+    def kernel_all():
+        for kind, A, kw in pnp_calls:
+            (k.eigh_small if kind == "eigh" else k.svd_small)(A, **kw)
+
+    def plain_all():
+        for kind, A, kw in pnp_calls:
+            (plain.eigh_small if kind == "eigh" else plain.svd_small)(A, **kw)
+
+    def library_all():
+        for kind, A, kw in pnp_calls:
+            (torch.linalg.eigh if kind == "eigh" else torch.linalg.svd)(A)
+
+    bound = [r for r in rows if r["site"] == "solve_pnp"]
+    res = {
+        "calls": rows, "shapes": [list(s) for s in shapes],
+        "max_abs_err": max(r["worst"] for r in rows),
+        "candidate_launches": len(pnp_calls),
+        "ms": _event_ms(torch, kernel_all, n=10, batch=5, warm=3),
+        "device_ms": _device_ms(torch, kernel_all, n=5),
+        "plain_ms": _event_ms(torch, plain_all, n=3, batch=1, warm=1),
+        "library_ms": _event_ms(torch, library_all, n=5, batch=2, warm=2),
+        "bound_ms": sum(r["bound_ms"] for r in bound),
+        "bytes": sum(r["bytes"] for r in bound), "operations": sum(r["operations"] for r in bound),
+    }
+    res["bound_by"] = ("bytes" if sum(r["bytes_ms"] for r in bound)
+                       >= sum(r["operations_ms"] for r in bound) else "operations")
+    per_site = {}
+    for site, kind, A, kw in calls:
+        f = lambda A=A, kw=kw, kind=kind: (k.eigh_small if kind == "eigh" else k.svd_small)(A, **kw)
+        key = f"{site} {kind} {A.shape[-1]}x{A.shape[-1]} x{A.shape[0]}"
+        per_site.setdefault(key, []).append(_event_ms(torch, f, n=5, batch=5, warm=2))
+    res["ms_by_call"] = per_site
+    log(f"[kernel] {smi}: small_linalg, one solve_pnp's {len(pnp_calls)} calls (256 hypotheses "
+        f"and the refit): kernel {res['ms']:.4f} ms (device {res['device_ms']:.4f}), plain "
+        f"{res['plain_ms']:.3f} ms, torch.linalg {res['library_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.6f} ms ({res['bound_by']}); worst invariant {res['max_abs_err']:.3g}; "
+        f"ms by call {json.dumps(per_site)}")
+    return res
 
 
 def _context(FusedContext, SlamConfig, fx):
@@ -1180,8 +1498,11 @@ def _kf_ate(slam, sf):
 def phase_system(torch, fast_cuda, smi):
     import warnings
 
+    from torch.profiler import ProfilerActivity, profile
+
     from orbslam_jpminipc_torch.config import SlamConfig
     from orbslam_jpminipc_torch.frontend.tracking import TrackState
+    from orbslam_jpminipc_torch.ops import small_linalg_cuda
     from orbslam_jpminipc_torch.pipeline.system import Slam
     from orbslam_jpminipc_torch.utils import host
     from orbslam_jpminipc_torch.utils.tracing import get_tracer
@@ -1219,13 +1540,23 @@ def phase_system(torch, fast_cuda, smi):
         """Feed the frames through `Slam.process`, one synchronised call
         each. With `count_syncs` every host synchronisation is recorded
         (CUDA sync debug mode), which slows the calls: that pass is not
-        timed."""
+        timed; in it each frame before WORKING runs under torch.profiler,
+        with the initialization attempt (`Tracker._attempt_init`: the draw,
+        the program, its read) in a range of its own."""
         rows = []
+        attempt_reads = []
         for i in range(n):
             was = slam.tracker.state
             fused = slam.tracker.fused_usable(slam.frame_count)
             reads0, launches0, kf0 = host.READS, fast_cuda.LAUNCHES, len(kf_events)
-            with warnings.catch_warnings(record=True) as caught:
+            profiled = count_syncs and was != TrackState.WORKING
+            stack = contextlib.ExitStack()
+            if profiled:
+                prof = stack.enter_context(
+                    profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+                stack.enter_context(_patch(slam.tracker, "_attempt_init",
+                                           _labelled(torch, "init_attempt", attempt_reads)))
+            with stack, warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 torch.cuda.synchronize()
                 if count_syncs:
@@ -1237,7 +1568,10 @@ def phase_system(torch, fast_cuda, smi):
                     torch.cuda.set_sync_debug_mode("default")
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
-            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            sites = [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+                     if "synchroniz" in str(w.message)]
+            syncs = len(sites)
+            attempt = _launches_in(prof, "init_attempt") if profiled else None
             pose = np.full((3, 4), np.nan, np.float32)
             if frame is not None and frame.R is not None:
                 pose[:, :3], pose[:, 3] = frame.R, frame.t
@@ -1251,13 +1585,17 @@ def phase_system(torch, fast_cuda, smi):
                 "ref_n_inliers": int(sf["n_inliers"][i]),
                 "n_keyframes": slam.n_keyframes, "n_points": slam.n_points,
                 "centre": _centre(pose).tolist() if np.isfinite(pose).all() else None,
+                "pose": pose.tolist() if np.isfinite(pose).all() else None,
                 "dcentre": float(np.abs(_centre(pose) - _centre(ref)).max()) if both else None,
                 "has_pose": bool(np.isfinite(pose).all()), "ref_has_pose": bool(np.isfinite(ref).all()),
                 "fetches": host.READS - reads0, "syncs": syncs if count_syncs else None,
+                "sync_sites": sites, "init_attempt": attempt,
                 "fast_launches": fast_cuda.LAUNCHES - launches0, "fused": fused,
             })
         slam.finish()
         torch.cuda.synchronize()
+        if attempt_reads:
+            rows[0]["attempt_reads"] = attempt_reads
         return rows
 
     # first, untimed, the host synchronisations per frame; then the same
@@ -1265,15 +1603,25 @@ def phase_system(torch, fast_cuda, smi):
     # kernel's launch count from 0
     slam, kf_events = make()
     rows2 = drive(slam, kf_events, count_syncs=True)
+    ate_rerun = _kf_ate(slam, sf)
+    init = _init_attempts(rows2)
+    log(f"[system] {smi}: initialization attempts (untimed run, torch.profiler): "
+        f"{json.dumps(init)}")
+    if not init["attempts"] or init["graph_launches_per_attempt"] != 1.0 or any(
+            r != 1 for r in init["reads_per_attempt"]):
+        raise AssertionError(f"[system] an initialization attempt is not one replay and one "
+                             f"read: {json.dumps(init)}")
+    if init["waits_in_solvers"]:
+        raise AssertionError(f"[system] the initializer waited: {init['waits_in_solvers']}")
     slam, kf_events = make(slam)
     tracer = get_tracer()
     tracer.reset()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fast_cuda.LAUNCHES = 0
+    fast_cuda.LAUNCHES = small_linalg_cuda.LAUNCHES = 0
     rows = drive(slam, kf_events, count_syncs=False)
-    launches = fast_cuda.LAUNCHES
+    launches, sl_launches = fast_cuda.LAUNCHES, small_linalg_cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     stages = tracer.summary()
     for r in rows:
@@ -1283,6 +1631,7 @@ def phase_system(torch, fast_cuda, smi):
             f"dcentre {r['dcentre']}, fetches {r['fetches']}, FAST {r['fast_launches']}")
     for r, r2 in zip(rows, rows2):
         r["syncs"] = r2["syncs"]
+        r.pop("sync_sites")
     rerun = {
         "states_equal": sum(a["state"] == b["state"] for a, b in zip(rows, rows2)),
         "max_dcentre": max((float(np.abs(np.subtract(a["centre"], b["centre"])).max())
@@ -1293,6 +1642,7 @@ def phase_system(torch, fast_cuda, smi):
 
     ate = _kf_ate(slam, sf)
     ref_ate = float(sf["kf_ate"])
+    init_hold = _init_hold(rows, sf)
     n_kf, ref_kf = slam.n_keyframes, int(sf["n_keyframes"])
     n_pts, ref_pts = slam.n_points, int(sf["n_points"])
     states_eq = sum(r["state"] == r["ref_state"] for r in rows)
@@ -1305,11 +1655,13 @@ def phase_system(torch, fast_cuda, smi):
         "n_keyframes": n_kf, "ref_n_keyframes": ref_kf,
         "n_points": n_pts, "ref_n_points": ref_pts,
         "max_dcentre": max(dc) if dc else None, "kf_ate": ate, "ref_kf_ate": ref_ate,
+        "kf_ate_untimed_run": ate_rerun, "initialization": init_hold,
         "ms_per_frame": groups,
         "syncs_per_frame": _percentiles([r["syncs"] for r in rows], unit=""),
         "fetches_per_frame": _percentiles([r["fetches"] for r in rows], unit=""),
-        "fast_launches": launches, "peak_mem_bytes": int(peak), "warmup_s": warmup_s,
-        "stages": stages, "rerun_vs_main": rerun, "rows": rows,
+        "fast_launches": launches, "small_linalg_launches": sl_launches,
+        "peak_mem_bytes": int(peak), "warmup_s": warmup_s,
+        "stages": stages, "rerun_vs_main": rerun, "rows": rows, "init_attempts": init,
     }
     for k, g in groups.items():
         log(f"[system] {smi}: {k} frames ms per process: {json.dumps(g)}")
@@ -1325,6 +1677,9 @@ def phase_system(torch, fast_cuda, smi):
         f"kf ATE {ate:.6f} (ref {ref_ate:.6f}), FAST launches {launches}")
     log(f"[system] the untimed run vs the timed one: states equal {rerun['states_equal']}/{n}, "
         f"max centre diff {rerun['max_dcentre']}")
+    log(f"[system] small_linalg launches over the run: {sl_launches}")
+    if sl_launches == 0:
+        raise AssertionError("[system] the small_linalg kernel was not launched")
 
     if states_eq < SYS_STATES_MIN:
         raise AssertionError(f"states equal on only {states_eq}/{n} frames")
@@ -1332,6 +1687,12 @@ def phase_system(torch, fast_cuda, smi):
         raise AssertionError(f"pose present/absent differs on frames {pose_mismatch}")
     if abs(n_kf - ref_kf) > SYS_KF_TOL:
         raise AssertionError(f"{n_kf} keyframes, reference {ref_kf}")
+    log(f"[system] {smi}: the initialization against the JAX outcome (the Jacobi kernel's "
+        f"SVDs and eigendecompositions): {json.dumps(init_hold)}; kf ATE {ate * 1e3:.4f} mm, "
+        f"the untimed run's {ate_rerun * 1e3:.4f} mm (reference {ref_ate * 1e3:.4f})")
+    if not init_hold["ok"]:
+        raise AssertionError(f"[system] the initialization is off the JAX outcome: "
+                             f"{json.dumps(init_hold)}")
     if abs(n_pts - ref_pts) > SYS_POINTS_REL * ref_pts:
         raise AssertionError(f"{n_pts} points, reference {ref_pts}")
     if not dc or max(dc) > SYS_CENTRE_TOL:
@@ -1346,6 +1707,57 @@ def phase_system(torch, fast_cuda, smi):
         raise AssertionError(f"FAST kernel not launched exactly once on frames {no_fast}")
     res["mapping_stages"] = stage_profile(torch, slam, smi)
     return res
+
+
+def _init_hold(rows, sf):
+    """The system run's initialization against the JAX outcome recorded in
+    the fixture: the frame that first tracks, its pose (R and t, largest
+    absolute difference, within the initializer test's bounds), and the
+    initial map (keyframes and points at that frame, equal)."""
+    from orbslam_jpminipc_torch.frontend.tracking import TrackState
+
+    working = TrackState.WORKING.value
+    first = next((r["frame"] for r in rows if r["state"] == working), None)
+    ref_first = int(np.argmax(sf["states"] == working))
+    out = {"frame": first, "ref_frame": ref_first, "ok": False}
+    if first is None or rows[first]["pose"] is None:
+        return out
+    r = rows[first]
+    pose, ref = np.array(r["pose"], np.float64), sf["poses"][ref_first].astype(np.float64)
+    out.update(dR=float(np.abs(pose[:, :3] - ref[:, :3]).max()),
+               dt=float(np.abs(pose[:, 3] - ref[:, 3]).max()),
+               n_keyframes=r["n_keyframes"],
+               ref_n_keyframes=int(sf["n_keyframes_per_frame"][ref_first]),
+               n_points=r["n_points"], ref_n_points=int(sf["n_points_per_frame"][ref_first]))
+    out["ok"] = (first == ref_first and out["dR"] <= SYS_INIT_R_TOL
+                 and out["dt"] <= SYS_INIT_T_TOL and out["n_keyframes"] == out["ref_n_keyframes"]
+                 and out["n_points"] == out["ref_n_points"])
+    return out
+
+
+def _init_attempts(rows):
+    """The untimed system run's initialization attempts: launches from the
+    host and graph replays per attempt (its profiled range), host reads per
+    attempt, and the frames' waits by source line (sync debug mode), those
+    in the RANSAC solvers apart."""
+    frames = [r for r in rows if r["init_attempt"] is not None]
+    calls = [r["init_attempt"] for r in frames if r["init_attempt"]["calls"]]
+    n = sum(c["calls"] for c in calls)
+    per = lambda f: sum(f(c) * c["calls"] for c in calls) / max(n, 1)
+    sites = {}
+    for r in frames:
+        for site in r["sync_sites"]:
+            sites[site] = sites.get(site, 0) + 1
+    return {"frames": len(frames), "attempts": n,
+            "host_launches_per_attempt": per(lambda c: c["host_launches_per_call"]),
+            "graph_launches_per_attempt": per(
+                lambda c: c["host_by_api_per_call"].get("cudaGraphLaunch", 0.0)),
+            "by_api": {k: per(lambda c: c["host_by_api_per_call"].get(k, 0.0))
+                       for k in sorted({a for c in calls for a in c["host_by_api_per_call"]})},
+            "reads_per_attempt": rows[0].get("attempt_reads", []),
+            "waits_by_site": dict(sorted(sites.items(), key=lambda kv: -kv[1])),
+            "waits_in_solvers": {k: v for k, v in sites.items()
+                                 if k.rpartition(":")[0].endswith(_WAIT_FREE)}}
 
 
 def stage_profile(torch, slam, smi):
@@ -1393,41 +1805,11 @@ def stage_profile(torch, slam, smi):
     return rows
 
 
-def _library_solves(torch):
-    """The batched library solves of one PnP call (256 hypotheses), each
-    alone on the card, and the whole EPnP on 256 minimal sets."""
-    from orbslam_jpminipc_torch.solvers import epnp
-
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    a12 = torch.randn((256, 24, 12), generator=gen, device="cuda")
-    mtm = a12.transpose(-1, -2) @ a12
-    a3 = torch.randn((256, 3, 3), generator=gen, device="cuda")
-    ptp = a3.transpose(-1, -2) @ a3
-    c4 = torch.randn((256, 4, 4), generator=gen, device="cuda")
-    a4 = c4.transpose(-1, -2) @ c4 + 1e-3 * torch.eye(4, device="cuda")
-    rhs = torch.randn((256, 4, 1), generator=gen, device="cuda")
-    xw = torch.randn((256, 4, 3), generator=gen, device="cuda") + torch.tensor(
-        [0.0, 0.0, 5.0], device="cuda")
-    uv = 500.0 * xw[..., :2] / xw[..., 2:] + torch.tensor([320.0, 240.0], device="cuda")
-    w = torch.ones((256, 4), device="cuda")
-    K4 = torch.tensor([500.0, 500.0, 320.0, 240.0], device="cuda")
-    return {
-        "eigh_256x12x12_ms": _event_ms(torch, lambda: torch.linalg.eigh(mtm), n=5, batch=3, warm=2),
-        "eigh_256x3x3_ms": _event_ms(torch, lambda: torch.linalg.eigh(ptp), n=5, batch=3, warm=2),
-        "svd_256x3x3_ms": _event_ms(torch, lambda: torch.linalg.svd(a3), n=5, batch=3, warm=2),
-        "pinv_256x4x4_ms": _event_ms(torch, lambda: torch.linalg.pinv(c4, rtol=1e-6),
-                                     n=5, batch=3, warm=2),
-        "solve_ex_256x4x4_ms": _event_ms(torch, lambda: torch.linalg.solve_ex(a4, rhs),
-                                         n=5, batch=3, warm=2),
-        "epnp_pose_256x4_ms": _event_ms(torch, lambda: epnp.epnp_pose(xw, uv, w, K4),
-                                        n=5, batch=2, warm=2),
-    }
-
-
 def _pnp_launches(torch):
     """One eager `solve_pnp` (256 hypotheses over 1000 points, 600 of them
-    on a pose) under torch.profiler: the relocalization candidate's eager
-    part, its launches from the host and device ops counted apart."""
+    on a pose) under torch.profiler: what the relocalization candidate's
+    program holds, run op by op, its launches from the host and device ops
+    counted apart."""
     from torch.profiler import ProfilerActivity, profile
 
     from orbslam_jpminipc_torch.solvers import pnp
@@ -1450,6 +1832,35 @@ def _pnp_launches(torch):
     return _launch_counts(prof, 1)
 
 
+def _feed_n2(slam, image, timestamp):
+    """One frame at 2 n features (the initialization's extraction) through
+    each host-path program at that shape, on a system that is WORKING:
+    frame-to-frame tracking from the last (n1) frame, local-map tracking
+    against the slice's 4096 rows, relocalization (its candidates from the
+    keyframe database) and both ladder rungs from the frame's pose. Returns
+    the programs' names at the n2 shapes."""
+    from orbslam_jpminipc_torch.frontend.frame import build_frame
+
+    tr, cfg = slam.tracker, slam.cfg
+    n1, n2 = cfg.n_features, 2 * cfg.n_features
+    last = tr.last_frame
+    frame = build_frame(image, cfg, frame_id=last.frame_id + 1, timestamp=timestamp,
+                        n_features=n2, extraction=tr.extraction)
+    tr._track_frame(frame)
+    if frame.R is None:
+        frame.R, frame.t = last.R.copy(), last.t.copy()
+    tr._track_local_map(frame)
+    kf = tr.ref_kf
+    tr.pnp_sampler = None     # the run's injected sets are used up: draw
+    tr._relocalize(frame)
+    if frame.R is None:
+        frame.R, frame.t = last.R.copy(), last.t.copy()
+    for radius, max_dist in ((10.0, 100), (3.0, 64)):
+        tr._reloc_refine_rung(frame, kf, radius, max_dist)
+    return {f"track_frame[{n1}x{n2}]", f"track_local_map[4096x{n2}]",
+            f"reloc_candidate[256x{n2}]", f"reloc_refine[{n2}]"}
+
+
 def _kf_ate_seq(slam, timestamps, gt_R, gt_t):
     from orbslam_jpminipc_torch.io.trajectory import ate_rmse
 
@@ -1466,6 +1877,7 @@ def phase_reloc_async(torch, fast_cuda, smi):
 
     from orbslam_jpminipc_torch.config import SlamConfig
     from orbslam_jpminipc_torch.frontend.tracking import TrackState
+    from orbslam_jpminipc_torch.ops import small_linalg_cuda
     from orbslam_jpminipc_torch.pipeline.system import Slam
     from orbslam_jpminipc_torch.utils import host
     from orbslam_jpminipc_torch.utils.program import CallLog
@@ -1494,8 +1906,6 @@ def phase_reloc_async(torch, fast_cuda, smi):
     log(f"[reloc_async] vocabulary: {vocab.n_words} words, k {vocab.k}, depth {vocab.depth}, "
         f"{vocab.node_desc.shape[0]} nodes on {vocab.device}, loaded in "
         f"{time.perf_counter() - t0:.2f} s")
-    solves = _library_solves(torch)
-    log(f"[reloc_async] {smi}: library solves alone, ms per call: {json.dumps(solves)}")
     pnp_alone = _pnp_launches(torch)
     log(f"[reloc_async] {smi}: one eager solve_pnp (256 hypotheses, 1000 points) under the "
         f"profiler: {json.dumps(pnp_alone)}")
@@ -1580,7 +1990,8 @@ def phase_reloc_async(torch, fast_cuda, smi):
                 if prof is not None:
                     lost_prof.append({"frame": i, "candidates": sum(
                         e["event"] == "reloc_attempt" for e in events[ev0:]),
-                        **_launch_counts(prof, 1)})
+                        **_launch_counts(prof, 1),
+                        "candidate_call": _launches_in(prof, "reloc_candidate")})
                 sites = [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
                          if "synchroniz" in str(w.message)]
                 syncs = len(sites)
@@ -1622,7 +2033,8 @@ def phase_reloc_async(torch, fast_cuda, smi):
         # and the host path's programs logged, then held against their eager
         # runs on the logged inputs
         slam, kf_events2, events2, _ = make(async_mapping, inject_pnp)
-        with CallLog() as calls:
+        with CallLog() as calls, _patch(slam.tracker, "_reloc_candidate",
+                                        _labelled(torch, "reloc_candidate")):
             rows2, _, _, lost_prof = drive(slam, kf_events2, events2, images, timestamps, True,
                                            sync_each=not async_mapping,
                                            profile_lost=not async_mapping)
@@ -1633,17 +2045,24 @@ def phase_reloc_async(torch, fast_cuda, smi):
                 tr2 = slam.tracker
                 for radius, max_dist in ((10.0, 100), (3.0, 64)):
                     tr2._reloc_refine_rung(tr2.last_frame, tr2.ref_kf, radius, max_dist)
+                n2_names = _feed_n2(slam, images[-1], float(timestamps[-1]))
         programs = hold_programs(torch, calls.calls, name) if not async_mapping else None
         del calls
+        if programs is not None:
+            held = {r["program"] for r in programs}
+            log(f"[graphs] {name}: the n2 programs held: {sorted(n2_names & held)}")
+            if not n2_names <= held:
+                raise AssertionError(f"[graphs] {name}: n2 programs not held: "
+                                     f"{sorted(n2_names - held)}")
         slam, kf_events, events, audit = make(async_mapping, inject_pnp, slam)
         tracer.reset()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        fast_cuda.LAUNCHES = 0
+        fast_cuda.LAUNCHES = small_linalg_cuda.LAUNCHES = 0
         rows, finish_ms, wall_s, _ = drive(slam, kf_events, events, images, timestamps, False,
                                            sync_each=not async_mapping)
-        launches = fast_cuda.LAUNCHES
+        launches, sl_launches = fast_cuda.LAUNCHES, small_linalg_cuda.LAUNCHES
         peak = torch.cuda.max_memory_allocated()
         stages = tracer.summary()
         # every frame's row is in the report file; here the frames around
@@ -1680,7 +2099,8 @@ def phase_reloc_async(torch, fast_cuda, smi):
             "queue": audit.counts(),
             "not_ready_skips": sum(e["event"] == "mapping_not_ready" for e in events),
             "finish_ms": finish_ms, "wall_s": wall_s, "synchronised_each_frame": not async_mapping,
-            "fast_launches": launches, "peak_mem_bytes": int(peak),
+            "fast_launches": launches, "small_linalg_launches": sl_launches,
+            "peak_mem_bytes": int(peak),
             "stages": {k: v for k, v in stages.items()
                        if k.startswith(("kfdb", "bow", "reloc", "mapping", "map_", "track",
                                         "loop_"))},
@@ -1694,11 +2114,27 @@ def phase_reloc_async(torch, fast_cuda, smi):
                 r["host_launches_per_call"] for r in lost_prof if r["candidates"]) / tried
             res["device_kernels_per_candidate"] = sum(
                 r["device_ops_per_call"] for r in lost_prof if r["candidates"]) / tried
+            # the candidate's own call (the draw, the program's copies in,
+            # its replay, its copy out): launches from the host and graph
+            # replays per candidate
+            calls_ = [r["candidate_call"] for r in lost_prof if r["candidate_call"]["calls"]]
+            n_calls = sum(c["calls"] for c in calls_)
+            per_call = lambda f: sum(f(c) * c["calls"] for c in calls_) / max(n_calls, 1)
+            res["candidate_call"] = {
+                "calls": n_calls,
+                "host_launches": per_call(lambda c: c["host_launches_per_call"]),
+                "graph_launches": per_call(lambda c: c["host_by_api_per_call"].get(
+                    "cudaGraphLaunch", 0.0)),
+                "by_api": {k: per_call(lambda c: c["host_by_api_per_call"].get(k, 0.0))
+                           for k in sorted({a for c in calls_ for a in c["host_by_api_per_call"]})}}
             log(f"[{name}] {smi}: LOST frames under the profiler (untimed run): "
                 f"{tried} candidates, {res['host_launches_per_candidate']:.1f} launches from "
                 f"the host and {res['device_kernels_per_candidate']:.1f} device ops a "
-                f"candidate, the frame's other work included; per frame "
-                f"{json.dumps(lost_prof)}")
+                f"candidate, the frame's other work included; the candidate's own call: "
+                f"{json.dumps(res['candidate_call'])}; per frame {json.dumps(lost_prof)}")
+            if n_calls != tried or res["candidate_call"]["graph_launches"] != 1.0:
+                raise AssertionError(f"[{name}] a candidate is not one replay: "
+                                     f"{json.dumps(res['candidate_call'])}")
         for k, g in res["ms_per_frame"].items():
             log(f"[{name}] {smi}: {k} frames ms per process: {json.dumps(g)}; until the call "
                 f"returned: {json.dumps(res['ms_until_return'][k])}; reads per frame "
@@ -1722,6 +2158,9 @@ def phase_reloc_async(torch, fast_cuda, smi):
         if launches != len(rows) or any(r["fast_launches"] != 1 for r in rows):
             raise AssertionError(f"[{name}] FAST kernel launched {launches} times over "
                                  f"{len(rows)} frames, expected once a frame")
+        log(f"[{name}] small_linalg launches over the run: {sl_launches}")
+        if sl_launches == 0:
+            raise AssertionError(f"[{name}] the small_linalg kernel was not launched")
         return slam, rows, res, events, audit
 
     # ---- Run R: forced loss, synchronous mapping, held to the reference ----
@@ -1828,23 +2267,29 @@ def phase_reloc_async(torch, fast_cuda, smi):
                              f"{slam.n_loops_closed} loops closed")
     for name, res in (("run_r", res_r), ("run_a", res_a)):
         res["upload_and_epnp_waits"] = _upload_and_epnp_waits(res["sync_sites"])
-        log(f"[{name}] waits at an upload or at EPnP's index sets: "
+        log(f"[{name}] waits at an upload or in the RANSAC solvers: "
             f"{res['upload_and_epnp_waits'] or 'none'}")
         if res["upload_and_epnp_waits"]:
-            raise AssertionError(f"[{name}] an upload or EPnP's index sets waited for the device: "
+            raise AssertionError(f"[{name}] an upload or a RANSAC solver waited for the device: "
                                  f"{res['upload_and_epnp_waits']}")
     log(f"[reloc_async] {smi}: Slam.warmup of the two systems "
         f"{[round(x, 2) for x in warmup_s]} s")
-    return {"library_solves_ms": solves, "solve_pnp_alone": pnp_alone, "run_r": res_r,
-            "run_a": res_a, "warmup_s": warmup_s}
+    return {"solve_pnp_alone": pnp_alone, "run_r": res_r, "run_a": res_a,
+            "warmup_s": warmup_s}
+
+
+# the solvers the relocalization candidate, the Sim3 RANSAC and the
+# initialization attempt run inside their programs: none may wait
+_WAIT_FREE = ("solvers/epnp.py", "solvers/pnp.py", "solvers/initializer.py",
+              "solvers/sim3solver.py", "solvers/small_linalg.py", "ops/small_linalg_cuda.py")
 
 
 def _upload_and_epnp_waits(sync_sites):
     """The synchronisations (by frame group, source line) made by a host ->
     device upload (`utils/host.py:upload`, which every upload of the
-    tracking path goes through, pinned and queued) or by EPnP anywhere but
-    its library factorizations (`eigh`, `svd`, `pinv`, which check their
-    result on the host and have no form without the check)."""
+    tracking path goes through, pinned and queued) or anywhere in the
+    RANSAC solvers (`_WAIT_FREE`: EPnP, PnP, the initializer, the Sim3
+    solver and the small-matrix kernel's wrapper)."""
     import linecache
 
     bad = {}
@@ -1853,9 +2298,7 @@ def _upload_and_epnp_waits(sync_sites):
             path, _, line = site.rpartition(":")
             text = linecache.getline(os.path.join(REPO, path), int(line)) if line.isdigit() else ""
             upload = path.endswith("utils/host.py") and "pin_memory" in text
-            epnp = path.endswith("solvers/epnp.py") and not any(
-                f in text for f in ("eigh", "svd", "pinv"))
-            if upload or epnp:
+            if upload or path.endswith(_WAIT_FREE):
                 bad.setdefault(kind, {})[site] = n
     return bad
 
@@ -2092,6 +2535,7 @@ def phase_loop(torch, fast_cuda, smi):
 
     from torch.profiler import ProfilerActivity, profile
 
+    from orbslam_jpminipc_torch.ops import small_linalg_cuda
     from orbslam_jpminipc_torch.solvers import essential_graph, gba
     from orbslam_jpminipc_torch.utils import host
     from orbslam_jpminipc_torch.utils.program import CallLog, ProgramSet
@@ -2117,7 +2561,9 @@ def phase_loop(torch, fast_cuda, smi):
     slam2, info2, lf2, _ = loop_system(
         "cuda", vocab, warmup=True,
         before_warmup=lambda s: compiled.append(timed_compile(torch, s)))
-    with warnings.catch_warnings(record=True) as caught, CallLog() as calls:
+    ransac = slam2.loop_closer.programs["sim3_ransac"]
+    with warnings.catch_warnings(record=True) as caught, CallLog() as calls, \
+            _patch(ransac, "run", _labelled(torch, "sim3_ransac")):
         warnings.simplefilter("always")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.set_sync_debug_mode("warn")
@@ -2134,6 +2580,11 @@ def phase_loop(torch, fast_cuda, smi):
     closure = _launch_counts(prof, 1)
     log(f"[loop] {smi}: the closure pass ({len(out2['per_kf'])} keyframes: detection, Sim3, "
         f"correction; first pass, under the profiler): {json.dumps(closure)}")
+    ransac_calls = _launches_in(prof, "sim3_ransac")
+    log(f"[loop] {smi}: the Sim3 RANSAC program (first pass): {json.dumps(ransac_calls)}")
+    if not ransac_calls["calls"] or ransac_calls["host_by_api_per_call"].get(
+            "cudaGraphLaunch") != 1.0:
+        raise AssertionError(f"[loop] the Sim3 RANSAC is not one replay: {ransac_calls}")
     # loop closing's programs against their eager runs on the closure's inputs
     programs = hold_programs(torch, calls.calls, "loop")
     del calls
@@ -2147,7 +2598,7 @@ def phase_loop(torch, fast_cuda, smi):
         f"{json.dumps(sorted(sites.items(), key=lambda kv: -kv[1]))}")
     in_solvers = {k: v for k, v in sites.items() if any(
         f"solvers/{m}.py" in k for m in ("essential_graph", "sim3_opt", "gba", "ba", "linalg3"))
-        or "geometry/" in k}
+        or "geometry/" in k or k.rpartition(":")[0].endswith(_WAIT_FREE)}
     if in_solvers:
         raise AssertionError(f"[loop] a solver's iterations wait for the host: {in_solvers}")
     # the main pass: timed by stage, held to the reference
@@ -2162,7 +2613,12 @@ def phase_loop(torch, fast_cuda, smi):
     tracer.reset()
     torch.cuda.reset_peak_memory_stats()   # (allocated bytes: the cache stays warm)
     reads0 = host.READS
+    small_linalg_cuda.LAUNCHES = 0
     out, run_ms = timed(lambda: loop_run(slam, info, lf))
+    sl_launches = small_linalg_cuda.LAUNCHES
+    log(f"[loop] small_linalg launches over the timed pass: {sl_launches}")
+    if sl_launches == 0:
+        raise AssertionError("[loop] the small_linalg kernel was not launched")
     if out["closed_kf"] < 0:
         raise AssertionError(f"[loop] the loop did not close: {out['per_kf']}")
     held = loop_hold(out, info, lf, meta)
@@ -2229,7 +2685,8 @@ def phase_loop(torch, fast_cuda, smi):
             "essential_graph_eager_ms": eg_eager_ms,
             "essential_graph_eager_profile": eg_eager_prof,
             "essential_graph_capture": eg_capture, "compile": compiled[0],
-            "closure_pass_profile": closure,
+            "closure_pass_profile": closure, "sim3_ransac_call": ransac_calls,
+            "small_linalg_launches": sl_launches,
             "programs": programs, "sync_sites": sites, "peak_mem_bytes": int(peak),
             "fast_launches": 0}
 
@@ -2345,7 +2802,8 @@ def _wait_sites(torch, slam, fn):
     system was doing: completing a forced head or draining the queue
     ("forced"), the host tracking path ("host path"), a hard mapping drain
     or `finish` ("drain"), else "other": a pipelined `process` call that
-    should not have waited."""
+    should not have waited. A wait inside `utils/host.py` (a read) names
+    the port's line that asked for the read ("via ...")."""
     import traceback
     import warnings
 
@@ -2357,6 +2815,14 @@ def _wait_sites(torch, slam, fn):
     def note(filename, lineno):
         kind = next((k for k in ("forced", "drain", "host path") if k in active), "other")
         site = f"{kind} {os.path.relpath(filename, REPO)}:{lineno}"
+        if filename.endswith(os.path.join("utils", "host.py")):
+            inside = False
+            for f in reversed(traceback.extract_stack()):
+                if f.filename.endswith(os.path.join("utils", "host.py")):
+                    inside = True
+                elif inside:
+                    site += f" via {os.path.relpath(f.filename, REPO)}:{f.lineno}"
+                    break
         sites[site] = sites.get(site, 0) + 1
 
     def labelled(label):
@@ -2525,7 +2991,7 @@ def phase_pipelined(torch, fast_cuda, smi, sequence=None):
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
 
-    def drive():
+    def drive(slam=slam):
         """The frames through `process`; completions, depths and stale
         records counted. Timed: each call to its return (it queues device
         work), the whole run to the end of its device work."""
@@ -2625,6 +3091,34 @@ def phase_pipelined(torch, fast_cuda, smi, sequence=None):
                              f"{n_pipelined} pipelined calls")
     if fast_launches != n:
         raise AssertionError(f"[pipelined] {fast_launches} FAST launches for {n} frames")
+
+    # -- Run P again with the 64k-word tree (the default call with a
+    # vocabulary: keyframe database, loop closing), untimed: its waits by
+    # source line, the keyframe database's among them
+    from orbslam_jpminipc_torch.vocab.vocabulary import load_vocabulary
+
+    slam_v = Slam(cfg, vocab=load_vocabulary(VOCAB), device="cuda")
+    t0 = time.perf_counter()
+    slam_v.warmup()
+    torch.cuda.synchronize()
+    warmup_v = time.perf_counter() - t0
+    box = {}
+    waits_v = _wait_sites(torch, slam_v, lambda: box.update(run=drive(slam_v)))
+    kfdb_v = {k: v for k, v in waits_v.items() if "map/keyframe_db.py" in k}
+    res["run_p_tree64k"] = {
+        "warmup_s": warmup_v, "waits_by_site": waits_v, "keyframe_db_waits": kfdb_v,
+        "waits_in_solvers": {k: v for k, v in waits_v.items()
+                             if k.split(" ", 1)[-1].rpartition(":")[0].endswith(_WAIT_FREE)},
+        "frames_tracked": len(slam_v.trajectory), "n_keyframes": slam_v.n_keyframes,
+        "states": [r["state"] for r in box["run"]["rows"]]}
+    log(f"[pipelined] {smi}: Run P with the 64k-word tree (untimed, after a {warmup_v:.1f} s "
+        f"warmup): waits by source line {json.dumps(waits_v)}; the keyframe database's "
+        f"{json.dumps(kfdb_v)}; tracked {len(slam_v.trajectory)}, keyframes "
+        f"{slam_v.n_keyframes}")
+    if res["run_p_tree64k"]["waits_in_solvers"]:
+        raise AssertionError(f"[pipelined] a RANSAC solver waited: "
+                             f"{res['run_p_tree64k']['waits_in_solvers']}")
+    del slam_v
 
     # -- run.py xyz:300, pipelined (the default) and synchronous, one process:
     # the sequence phase's two runs, or runs of its own without that phase
@@ -2934,16 +3428,17 @@ def phase_vocab(torch, fast_cuda, smi):
     os.makedirs(tmp, exist_ok=True)
     flat, tree, subset = (os.path.join(tmp, n) for n in ("flat.npz", "tree.npz", "subset.npy"))
     res = {"card": smi}
-    # -- the default training: flat, 8192 words, 60 frames x 8 seeds ----------
-    frames, seeds = VOCAB_DEFAULT_FRAMES, VOCAB_DEFAULT_SEEDS
+    # -- the training: flat, 8192 words, 60 frames x 4 seeds -------------------
+    frames, seeds = VOCAB_DEFAULT_FRAMES, VOCAB_TRAIN_SEEDS
     n_train_frames = seeds * 2 * len(range(0, frames, max(1, frames // 15)))
-    r, lines = _run_script(_VOCAB_TRAIN_RUN, [REPO, subset, str(VOCAB_SUBSET), "--out", flat],
+    r, lines = _run_script(_VOCAB_TRAIN_RUN, [REPO, subset, str(VOCAB_SUBSET), "--seeds",
+                                              str(seeds), "--out", flat],
                            "[vocab] python -m orbslam_jpminipc_torch.vocab.train", 900)
     r.update(_train_seconds(lines), training_frames=n_train_frames)
     res["flat"] = r
     for ln in lines:
         log(f"[vocab] train: {ln}")
-    log(f"[vocab] {smi}: the default training ({frames} frames x {seeds} seeds, xyz and loop, "
+    log(f"[vocab] {smi}: the training ({frames} frames x {seeds} seeds, xyz and loop, "
         f"{n_train_frames} frames): {r['n_descriptors']} descriptors, {r['n_words']} words; "
         f"render {r['render_s']:.2f} s, extract {r['extract_s']:.2f} s, k-medians "
         f"{r['kmedians_s']:.2f} s; main {r['wall_s']:.1f} s, the process "
@@ -3290,7 +3785,9 @@ def main() -> int:
         return busy
 
     phases = {
-        "kernel": lambda: phase_kernel(torch, fast, fast_cuda, pyramid, fx),
+        "kernel": lambda: dict(phase_kernel(torch, fast, fast_cuda, pyramid, fx),
+                               small_linalg=kernel_small_linalg(torch, smi),
+                               epnp_n1_case=epnp_n1_cost(torch, smi)),
         "slice": lambda: phase_slice(torch, fast_cuda, FusedContext, SlamConfig, fx),
         "throughput": lambda: phase_throughput(torch, FusedContext, SlamConfig, fx),
         "breakdown": lambda: phase_breakdown(torch, fx, FusedContext, SlamConfig),
@@ -3312,9 +3809,14 @@ def main() -> int:
         unknown = [p for p in only if p not in phases]
         if unknown:
             raise SystemExit(f"chip_smoke: unknown phases {unknown}; known: {list(phases)}")
+    phase_s = {}
     for name, phase in phases.items():
         if only is None or name in only:
+            t0 = time.perf_counter()
             report[name] = phase()
+            phase_s[name] = time.perf_counter() - t0
+            log(f"[time] phase {name}: {phase_s[name]:.1f} s")
+    report["phase_s"] = phase_s
 
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     # a run of some phases does not overwrite a whole run's report
@@ -3326,6 +3828,7 @@ def main() -> int:
         return 0
 
     k = report["kernel"]["frame"]
+    sl = report["kernel"]["small_linalg"]
     b = report["pipelined"]["branch_kernel"]
     log(f"chip_smoke: {report['device']}: the whole script took "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -3375,6 +3878,33 @@ def main() -> int:
         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
         # no PyTorch call decides a graph's branch on the device
         "library_ms": None,
+    }, {
+        # the reference's jnp.linalg calls inside its jitted solvers (no
+        # Pallas counterpart): eigh of EPnP's M^T M, and the others below
+        "name": "small_linalg",
+        "route": "cuda",
+        "source": "orbslam_jpminipc_torch/csrc/small_linalg.cu",
+        "replaces": "orbslam_jpminipc_tpu/solvers/epnp.py:214",
+        "replaces_also": ["orbslam_jpminipc_tpu/solvers/epnp.py:32",
+                          "orbslam_jpminipc_tpu/solvers/epnp.py:53",
+                          "orbslam_jpminipc_tpu/solvers/epnp.py:198",
+                          "orbslam_jpminipc_tpu/solvers/sim3solver.py:57",
+                          "orbslam_jpminipc_tpu/solvers/initializer.py:78",
+                          "orbslam_jpminipc_tpu/solvers/initializer.py:93",
+                          "orbslam_jpminipc_tpu/solvers/initializer.py:95",
+                          "orbslam_jpminipc_tpu/solvers/initializer.py:188",
+                          "orbslam_jpminipc_tpu/solvers/initializer.py:237"],
+        # the system phase's count (the initialization attempts' replays)
+        "launches": report["system"]["small_linalg_launches"],
+        "launches_reloc_run": report["reloc_async"]["run_r"]["small_linalg_launches"],
+        "launches_loop_phase": report["loop"]["small_linalg_launches"],
+        # the worst invariant of every held call, relative to |A|
+        "max_abs_err": sl["max_abs_err"],
+        # one solve_pnp's calls (a relocalization candidate's EPnP)
+        "ms": sl["ms"], "plain_ms": sl["plain_ms"],
+        "bound_ms": sl["bound_ms"], "bound_by": sl["bound_by"],
+        # torch.linalg.eigh / svd on the same float32 inputs
+        "library_ms": sl["library_ms"], "device_ms": sl["device_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,8 +29,12 @@ host has rewritten the step's state since its dispatch.
 Relocalization needs a keyframe database (place recognition,
 map/keyframe_db.py): with one, a LOST frame queries it for candidate
 keyframes and tries each (mutual match + EPnP RANSAC + pose
-optimization: two programs with the RANSAC between them, eager, as its
-library factorizations read the host) and the projection-search ladder;
+optimization: one program, `reloc_candidate`) and the projection-search
+ladder. The RANSACs' minimal sets are drawn as uniform scores on the host
+side of a program (`draw_scores`, from the tracker's generator) and
+selected inside it (`initializer.select_minimal_sets`), so no generator
+runs inside a captured graph; the initialization attempt is one program
+too (`init_attempt`);
 without one (no vocabulary) `_relocalize` returns False, as the reference's does, and LOST
 is terminal. The keyframe decision asks the System's `mapper_busy` hook:
 under asynchronous mapping the stage queue rations keyframes; when mapping
@@ -56,6 +60,7 @@ from . import fused_track
 from .frame import _FEAT_FIELDS, Extraction, Frame
 
 MAX_LOCAL_POINTS = fused_track.MAX_SLICE
+INIT_HYP = 200   # the initializer's hypotheses per model (Initializer.cc:102-107)
 
 
 class TrackState(enum.Enum):
@@ -118,6 +123,12 @@ def _scatter_bindings(idx, mask, n: int) -> torch.Tensor:
     return feat_q[:n]
 
 
+def _from_scores(scores, k):
+    """A sampler(mask, n_hyp) over drawn scores: each row's top k valid
+    slots (`initializer.select_minimal_sets`), inside the program."""
+    return lambda mask, n_hyp: initializer.select_minimal_sets(scores, mask, k)
+
+
 def _init_attempt(sampler, d0, xy0, a0, v0, lvl0, d1, xy1un, a1, lvl1, v1, K4):
     """One initialization attempt as ONE program: level-0 window match
     (SearchForInitialization, win=100, ORBmatcher.cc:598-713) + the batched
@@ -130,7 +141,7 @@ def _init_attempt(sampler, d0, xy0, a0, v0, lvl0, d1, xy1un, a1, lvl1, v1, K4):
     )
     mask = m.mask & (lvl0 == 0)
     uv2 = xy1un[m.idx.to(torch.int64)]
-    res = initializer.initialize(sampler(mask, 200), xy0, uv2, mask, K4)
+    res = initializer.initialize(sampler(mask, INIT_HYP), xy0, uv2, mask, K4)
     return torch.sum(v1), m.idx, mask, res
 
 
@@ -203,36 +214,23 @@ def _track_local_map_prog(mp_xyz, mp_normal, mp_mind, mp_maxd, mp_desc,
     return visible, m.idx, m.mask, feat_q, has, res
 
 
-def _reloc_match_prog(f_desc, f_angle, f_valid, kf_desc, kf_angle, kf_has, kf_xw):
-    """A relocalization candidate's first part: BoW-free mutual matching
-    against the candidate keyframe, and each frame feature's world point
-    through the candidate's bindings. Returns (idx, mask, xw)."""
-    m = matching.mutual_match(
-        f_desc, f_angle, f_valid, kf_desc, kf_angle, kf_has,
-        max_dist=50, nn_ratio=0.75, check_rotation=True)
-    return m.idx, m.mask, kf_xw[m.idx.to(torch.int64)]
-
-
-def _reloc_opt_prog(R, t, xw, f_xy, w, valid, inliers, K4):
-    """Its last part: the 4-round pose optimization from the PnP pose on the
-    PnP inliers among the matches. Returns (sel, result)."""
-    sel = valid & inliers
-    return sel, pose_opt.optimize_pose(R, t, xw, f_xy, w, sel, K4)
-
-
 def _reloc_candidate_prog(sampler, f_desc, f_xy, f_angle, f_level, f_valid, w,
                           kf_desc, kf_angle, kf_has, kf_xw, max_err2, K4):
     """One relocalization candidate attempt, the reference's one program
     (Relocalisation :881-1050 inner loop): the mutual match, EPnP RANSAC
     over the matched points on minimal sets drawn by `sampler(mask,
     n_hyp)`, then the 4-round pose optimization on the PnP inliers. The
-    tracker runs the same three parts, the first and last as captured
-    programs."""
-    idx, valid, xw = _reloc_match_prog(f_desc, f_angle, f_valid, kf_desc, kf_angle,
-                                       kf_has, kf_xw)
-    res = pnp.solve_pnp(sampler(valid, pnp.N_HYP), xw, f_xy, valid, K4, max_err2)
-    sel, opt = _reloc_opt_prog(res.R, res.t, xw, f_xy, w, valid, res.inliers, K4)
-    return idx, valid, res.success, sel, opt
+    tracker runs it as the `reloc_candidate` program, its sampler selecting
+    from scores drawn before the replay."""
+    m = matching.mutual_match(
+        f_desc, f_angle, f_valid, kf_desc, kf_angle, kf_has,
+        max_dist=50, nn_ratio=0.75, check_rotation=True)
+    # each frame feature's world point through the candidate's bindings
+    xw = kf_xw[m.idx.to(torch.int64)]
+    res = pnp.solve_pnp(sampler(m.mask, pnp.N_HYP), xw, f_xy, m.mask, K4, max_err2)
+    sel = m.mask & res.inliers
+    opt = pose_opt.optimize_pose(res.R, res.t, xw, f_xy, w, sel, K4)
+    return m.idx, m.mask, res.success, sel, opt
 
 
 def _reloc_refine_prog(q_desc, uv_proj, q_level, valid_q, q_xw,
@@ -272,16 +270,15 @@ class Tracker:
         self.last_kf_frame_id: int = 0
         self.last_reloc_frame_id: int = -(10 ** 9)
         self.n_inliers: int = 0
-        # RANSAC minimal sets: sampler(mask, n_hyp) -> (n_hyp, 8) indices.
-        # The default draws from a generator seeded from cfg.seed; a test
-        # may replace it to replay another implementation's sets.
+        # RANSAC minimal sets: uniform scores drawn by `draw_scores` from a
+        # generator seeded from cfg.seed, selected inside the program. A
+        # test may set `sampler` (initialization, (n_hyp, 8) indices) or
+        # `pnp_sampler` (a relocalization candidate, (n_hyp, 4)) to
+        # sampler(mask, n_hyp) to replay another implementation's sets: the
+        # mask is computed inside the program, so the hook gets None
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        self.sampler = lambda mask, n_hyp: initializer.sample_minimal_sets(
-            self.generator, mask, n_hyp)
-        # PnP minimal sets of a relocalization candidate:
-        # pnp_sampler(mask, n_hyp) -> (n_hyp, 4) indices, the same hook
-        self.pnp_sampler = lambda mask, n_hyp: pnp.sample_minimal_sets(
-            mask, n_hyp, self.generator)
+        self.sampler = None
+        self.pnp_sampler = None
         self.bounds = self._compute_bounds()
         self.K4 = self._put(cfg.K4)
         self.scale_factors = self._put(cfg.scale_factors)
@@ -295,10 +292,14 @@ class Tracker:
                                       "track_frame", pool=pool),
             "track_local_map": ProgramSet(lambda v, *a: _track_local_map_prog(*a), dev,
                                           "track_local_map", pool=pool),
-            "reloc_match": ProgramSet(lambda v, *a: _reloc_match_prog(*a), dev,
-                                      "reloc_match", pool=pool),
-            "reloc_opt": ProgramSet(lambda v, *a: _reloc_opt_prog(*a), dev, "reloc_opt",
-                                    pool=pool),
+            # the scores of the RANSAC draw come first
+            "reloc_candidate": ProgramSet(
+                lambda v, scores, *a: _reloc_candidate_prog(
+                    _from_scores(scores, pnp.MIN_SET), *a),
+                dev, "reloc_candidate", pool=pool),
+            "init_attempt": ProgramSet(
+                lambda v, scores, *a: _init_attempt(_from_scores(scores, 8), *a),
+                dev, "init_attempt", pool=pool),
             # variant (radius, max_dist): the ladder's two rungs
             "reloc_refine": ProgramSet(
                 lambda v, *a: _reloc_refine_prog(*a, radius=v[0], max_dist=v[1]), dev,
@@ -334,16 +335,29 @@ class Tracker:
     def _feat(self, frame: Frame, name: str) -> torch.Tensor:
         return frame.feature_tensor(name, self.device)
 
+    def draw_scores(self, n_hyp: int, n: int) -> torch.Tensor:
+        """Uniform scores (n_hyp, n) for a RANSAC draw, from the tracker's
+        generator on its device."""
+        return torch.rand((n_hyp, n), generator=self.generator, device=self.device)
+
+    def _scores(self, sampler, n_hyp: int, n: int) -> torch.Tensor:
+        """The scores a program selects its minimal sets from: a fresh draw,
+        or the sets a replaying `sampler` gives (`scores_for_sets`)."""
+        if sampler is None:
+            return self.draw_scores(n_hyp, n)
+        return initializer.scores_for_sets(sampler(None, n_hyp).to(self.device), n)
+
     @torch.no_grad()
     def capture_programs(self):
         """Capture the host path's programs ahead of the first frame at the
         shapes the reference compiles (its `Slam._compile_programs`):
         extraction at n1 = n_features and n2 = 2 n1; frame-to-frame tracking
         at (last frame, frame) in {n1, n2}^2; local-map tracking at frame n1
-        and n2 against the slice's M rows; the relocalization candidate's
-        two programs and both ladder rungs at frame n1 and n2 against
-        keyframe rows. Dummy inputs of the real calls' dtypes; on the CPU
-        nothing is captured (the sets still note the shapes)."""
+        and n2 against the slice's M rows; the relocalization candidate and
+        both ladder rungs at frame n1 and n2 against keyframe rows; the
+        initialization attempt at n2 (the initializing frames' extraction).
+        Dummy inputs of the real calls' dtypes; on the CPU nothing is
+        captured (the sets still note the shapes)."""
         cfg, dev = self.cfg, self.device
         n1, n2, M, nk = cfg.n_features, 2 * cfg.n_features, MAX_LOCAL_POINTS, self.map.n_feat
         z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=dev)
@@ -362,15 +376,20 @@ class Tracker:
                 None, z(M, 3), z(M, 3), z(M), z(M), z(M, 32, dt=u8), z(M, dt=b), z(M, dt=b),
                 f[0], f[1], f[3], f[4], z(nf, 3), z(nf, dt=b), z(nf), eye, z(3), self.K4,
                 z(4), self.scale_factors, z())
-            P["reloc_match"].capture(None, f[0], f[2], f[4], z(nk, 32, dt=u8), z(nk),
-                                     z(nk, dt=b), z(nk, 3))
-            P["reloc_opt"].capture(None, eye, z(3), z(nf, 3), f[1], z(nf), z(nf, dt=b),
-                                   z(nf, dt=b), self.K4)
+            P["reloc_candidate"].capture(
+                None, z(pnp.N_HYP, nf), f[0], f[1], f[2], f[3], f[4], z(nf),
+                z(nk, 32, dt=u8), z(nk), z(nk, dt=b), z(nk, 3), z(nf), self.K4)
             for rung in ((10.0, 100), (3.0, 64)):
                 P["reloc_refine"].capture(
                     rung, z(nk, 32, dt=u8), z(nk, 2), z(nk, dt=i32), z(nk, dt=b), z(nk, 3),
                     f[0], f[1], f[3], f[4], z(nf, 3), z(nf, dt=b), z(nf), eye, z(3),
                     self.K4, self.scale_factors)
+        # frame 0's desc, xy_un, angle, valid, level; frame 1's desc, xy_un,
+        # angle, level, valid
+        P["init_attempt"].capture(
+            None, z(INIT_HYP, n2), z(n2, 32, dt=u8), z(n2, 2), z(n2), z(n2, dt=b),
+            z(n2, dt=i32), z(n2, 32, dt=u8), z(n2, 2), z(n2), z(n2, dt=i32), z(n2, dt=b),
+            self.K4)
 
     # ------------------------------------------------------------------
     # main entry
@@ -603,11 +622,13 @@ class Tracker:
             self.init_frame = frame
             self.state = TrackState.INITIALIZING
 
-    def _try_initialize(self, frame: Frame):
-        f0 = self.init_frame
-        # ONE program + ONE host read per attempt
-        n1, idx, mask, res = _init_attempt(
-            self.sampler,
+    def _attempt_init(self, f0: Frame, frame: Frame):
+        """One initialization attempt from `f0` to `frame`: the draw, ONE
+        program (`init_attempt`) and ONE host read. Returns the frame's
+        valid count, the match table and mask, and the `InitResult`, on
+        the host."""
+        out = self.programs["init_attempt"].run(
+            None, self._scores(self.sampler, INIT_HYP, f0.n_feat),
             self._feat(f0, "desc"), self._feat(f0, "xy_un"),
             self._feat(f0, "angle"), self._feat(f0, "valid"),
             self._feat(f0, "level"),
@@ -615,9 +636,12 @@ class Tracker:
             self._feat(frame, "angle"), self._feat(frame, "level"),
             self._feat(frame, "valid"), self.K4,
         )
-        host = fetch(n1, idx, mask, *res)
-        n1, idx, mask = host[:3]
-        res = initializer.InitResult(*host[3:])
+        host = fetch(*out[:3], *out[3])
+        return (*host[:3], initializer.InitResult(*host[3:]))
+
+    def _try_initialize(self, frame: Frame):
+        f0 = self.init_frame
+        n1, idx, mask, res = self._attempt_init(f0, frame)
         if int(n1) <= 100:
             self.state = TrackState.NOT_INITIALIZED
             return
@@ -832,9 +856,8 @@ class Tracker:
     # ------------------------------------------------------------------
 
     def _relocalize(self, frame: Frame) -> bool:
-        """Candidates from the keyframe database, then per candidate the
-        match program, the PnP RANSAC (eager: EPnP's library factorizations
-        read the host), the pose-optimization program and ONE host read.
+        """Candidates from the keyframe database, then per candidate ONE
+        program (match, PnP RANSAC, pose optimization) and ONE host read.
         Without a database (no vocabulary) LOST is terminal, as in the
         reference."""
         if self.kfdb is None:
@@ -889,16 +912,12 @@ class Tracker:
     def _reloc_candidate(self, f_desc, f_xy, f_angle, f_level, f_valid, w,
                          kf_desc, kf_angle, kf_has, kf_xw, max_err2, K4):
         """`_reloc_candidate_prog` (mutual match + EPnP RANSAC + 4-round
-        pose optimization on the PnP inliers) cut around the RANSAC: the
-        match and the optimization run as programs, the RANSAC eagerly
-        between them on `pnp_sampler`'s sets, drawn as the one program
-        draws them."""
-        P = self.programs
-        idx, valid, xw = P["reloc_match"].run(None, f_desc, f_angle, f_valid, kf_desc,
-                                              kf_angle, kf_has, kf_xw)
-        res = pnp.solve_pnp(self.pnp_sampler(valid, pnp.N_HYP), xw, f_xy, valid, K4, max_err2)
-        sel, opt = P["reloc_opt"].run(None, res.R, res.t, xw, f_xy, w, valid, res.inliers, K4)
-        return idx, valid, res.success, sel, opt
+        pose optimization on the PnP inliers) as one program, on scores
+        drawn for it (`_scores`)."""
+        scores = self._scores(self.pnp_sampler, pnp.N_HYP, f_desc.shape[0])
+        return self.programs["reloc_candidate"].run(
+            None, scores, f_desc, f_xy, f_angle, f_level, f_valid, w,
+            kf_desc, kf_angle, kf_has, kf_xw, max_err2, K4)
 
     def _reloc_refine(self, frame: Frame, kf: int) -> bool:
         """The reference's full post-PnP refinement ladder

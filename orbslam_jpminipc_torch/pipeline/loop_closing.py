@@ -14,12 +14,13 @@ bookkeeping is host numpy; the device programs are `mutual_match`,
 `search_by_projection`, `fuse_search`, `solve_sim3`, `optimize_sim3` and
 `optimize_essential_graph` (with more than one device to shard over and
 `cfg.distributed_gba`, the edge-sharded `sharded_optimize_essential_graph`
-of parallel/, as the reference on a multi-device mesh). All but
-`solve_sim3` (its `eigh` reads the host) and the sharded essential graph
-run as captured programs (utils/program.py `ProgramSet`, one CUDA graph per
-shape and variant, on one memory pool; `capture_programs` takes them ahead
-of time at the reference's shapes): host arrays are copied in, results
-copied out, and each call's results come back in one batched read.
+of parallel/, as the reference on a multi-device mesh). All but the
+sharded essential graph run as captured programs (utils/program.py
+`ProgramSet`, one CUDA graph per shape and variant, on one memory pool;
+`capture_programs` takes them ahead of time at the reference's shapes):
+host arrays are copied in, results copied out, and each call's results
+come back in one batched read. The Sim3 RANSAC (`sim3_ransac`) selects its
+minimal sets inside the program from uniform scores drawn before it.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from ..parallel import mesh as pmesh
 from ..parallel.sharded_pose_graph import (
     shard_essential_graph, sharded_optimize_essential_graph,
 )
-from ..solvers import essential_graph, sim3_opt, sim3solver
+from ..solvers import essential_graph, initializer, sim3_opt, sim3solver
 from ..utils.device import resolve_device
 from ..utils.host import fetch, host_tensor
 from ..utils.program import GraphPool, ProgramSet
@@ -55,13 +56,12 @@ class LoopCloser:
         self.consistent_groups: list[tuple[set, int]] = []
         self.last_loop_kf_id = -(10 ** 9)
         self.covisibility_consistency_th = 3
-        # Sim3 RANSAC minimal sets: sim3_sampler(mask, n_hyp) -> (n_hyp, 3)
-        # pair indices. The default draws from a generator seeded from
-        # cfg.seed; a test may replace it to replay another
-        # implementation's sets.
+        # Sim3 RANSAC minimal sets: uniform scores drawn from a generator
+        # seeded from cfg.seed, selected inside the program. A test may set
+        # `sim3_sampler` to sim3_sampler(mask, n_hyp) -> (n_hyp, 3) pair
+        # indices to replay another implementation's sets.
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
-        self.sim3_sampler = lambda mask, n_hyp: sim3solver.sample_minimal_sets(
-            mask, n_hyp, self.generator)
+        self.sim3_sampler = None
         self.on_loop_closed = None  # fn(kf) hook
         # device mirror of the map (wired by the System; a closer used on
         # its own makes one at first need)
@@ -82,11 +82,27 @@ class LoopCloser:
                                "lc_fuse", pool=pool),
             "sim3_opt": ProgramSet(lambda v, *a: sim3_opt.optimize_sim3(*a), dev,
                                    "lc_sim3_opt", pool=pool),
+            # the draw's scores, then solve_sim3's inputs
+            "sim3_ransac": ProgramSet(
+                lambda v, scores, p1, p2, uv1, uv2, mask, *a: sim3solver.solve_sim3(
+                    initializer.select_minimal_sets(scores, mask, 3),
+                    p1, p2, uv1, uv2, mask, *a),
+                dev, "lc_sim3_ransac", pool=pool),
             # variant: the iterations
             "essential_graph": ProgramSet(
                 lambda v, prob: essential_graph.optimize_essential_graph(prob, iterations=v),
                 dev, "essential_graph", pool=pool),
         }
+
+    def _sim3_scores(self, mask: torch.Tensor) -> torch.Tensor:
+        """The scores the RANSAC program selects its sets from: a draw from
+        the closer's generator, or the sets a replaying `sim3_sampler`
+        gives (`initializer.scores_for_sets`)."""
+        n = mask.shape[0]
+        if self.sim3_sampler is None:
+            return torch.rand((sim3solver.N_HYP, n), generator=self.generator, device=self.device)
+        sets = self.sim3_sampler(mask, sim3solver.N_HYP)
+        return initializer.scores_for_sets(sets.to(self.device), n)
 
     def _mirror(self) -> DeviceMap:
         if self.dmap is None:
@@ -103,7 +119,7 @@ class LoopCloser:
         """Capture every program ahead of the first closure at the shapes
         the reference compiles (its `Slam._compile_programs`), with dummy
         inputs of the real calls' dtypes: the mutual match at n2 x n2 (n2 =
-        the keyframe rows), the Sim3 refinement at n2 pairs, the projection
+        the keyframe rows), the Sim3 RANSAC and refinement at n2 pairs, the projection
         searches at n2 (search by Sim3, 7.5 px) and `LOOP_POINTS_CAP` rows
         (guided matches, 10 px), the fuse search at `LOOP_POINTS_CAP` rows,
         and the essential graph at (max_kf, eg_edges), 20 iterations,
@@ -117,6 +133,8 @@ class LoopCloser:
         P["mutual"].capture(None, kf[0], z(n2), kf[3], kf[0], z(n2), kf[3])
         P["sim3_opt"].capture(None, z(), torch.eye(3, device=dev), z(3), z(n2, 3), z(n2, 3),
                               z(n2, 2), z(n2, 2), z(n2), z(n2), z(n2, dt=b), K4)
+        P["sim3_ransac"].capture(None, z(sim3solver.N_HYP, n2), z(n2, 3), z(n2, 3), z(n2, 2),
+                                 z(n2, 2), z(n2, dt=b), K4, z(n2), z(n2))
         for rows, variant in ((n2, (7.5, 100)), (Q, (10.0, 100))):
             P["proj"].capture(variant, z(rows, 32, dt=u8), z(rows, 2), z(rows, dt=i32),
                               z(rows, dt=b), *kf, sf)
@@ -228,8 +246,8 @@ class LoopCloser:
             x_c_d, uv_c_d = put(x_c.astype(np.float32)), put(st.kf_xy[kf])
             with tracer.stage("sim3_ransac"):
                 pair_ok_d = put(pair_ok)
-                res = sim3solver.solve_sim3(
-                    self.sim3_sampler(pair_ok_d, sim3solver.N_HYP),
+                res = P["sim3_ransac"].run(
+                    None, self._sim3_scores(pair_ok_d),
                     x_c_d, put(x_l.astype(np.float32)), uv_c_d, put(st.kf_xy[cand][idx]),
                     pair_ok_d, K4,
                     put((9.21 * cfg.sigma2[lev_c]).astype(np.float32)),

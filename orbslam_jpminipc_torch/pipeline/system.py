@@ -332,13 +332,12 @@ class Slam:
         `_compile_programs`): the WORKING step (every segment and both arms
         of its two host tests), both local-BA stages, the tracking host
         path (extraction, frame-to-frame and local-map tracking, the
-        relocalization candidate's two programs and both ladder rungs) and,
-        with a loop closer, loop closing's matchers, the Sim3 refinement
-        and the essential graph. On the CPU nothing is captured.
+        relocalization candidate, both ladder rungs and the initialization
+        attempt) and, with a loop closer, loop closing's matchers, the Sim3
+        RANSAC and refinement and the essential graph. On the CPU nothing
+        is captured.
 
-        Left eager, as their library factorizations read the host: the
-        initialization attempt, the PnP RANSAC and the Sim3 RANSAC; and the
-        sharded essential graph of several cards."""
+        Left eager: the sharded essential graph of several cards."""
         if self.tracker.fused is not None:
             self.tracker.fused.capture()
         self.mapper.capture_programs()

@@ -15,18 +15,23 @@ Weighted form: every per-point quantity carries a weight (1/0 mask), so
 the same program serves the 4-point minimal sets AND the all-inlier Refine
 (:232-277).
 
-The eigendecompositions, the SVD, the inverse and the small solves are
-library calls (LAPACK on the CPU, cuSOLVER on a card), as they are in the
-reference. On a card `eigh`, `svd` and `pinv` check their result on the
-host (none has a form without the check); the small solves are the `_ex`
-form, and the fixed index sets are slices: a Python list as an index is
-uploaded, and waited for, on every call. The four smallest eigenvectors of MtM span a near-null
-space: the individual vectors are not determined to rounding, the poses
-that come out of them are.
+The eigendecompositions, the SVDs and the pseudo-inverse are the Jacobi
+solvers of ops/small_linalg_cuda.py (the hand-written kernel on a card, its
+plain version on the CPU); the small solves are `solve_ex` and the 3x3
+determinant a closed form, so nothing here reads the host and the whole
+RANSAC can be one captured program. The fixed index sets are slices: a
+Python list as an index is uploaded, and waited for, on every call. The
+four smallest eigenvectors of MtM span a near-null space: the individual
+vectors are not determined to rounding, the poses that come out of them
+are.
 """
 from __future__ import annotations
 
 import torch
+
+from ..ops.small_linalg_cuda import eigh_small, svd_small
+from .linalg3 import det3
+from .small_linalg import pinv_from_svd
 
 
 def _pair_diffs(x):
@@ -44,7 +49,9 @@ def _weighted_control_points(xw, w):
     c0 = torch.sum(xw * w[..., None], dim=-2) / wsum
     d = (xw - c0[..., None, :]) * torch.sqrt(w)[..., None]
     PtP = torch.einsum("...mi,...mj->...ij", d, d)
-    vals, vecs = torch.linalg.eigh(PtP)          # ascending
+    # ascending; the axes' signs are LAPACK's, as the reference's (the pose
+    # depends on them: solvers/small_linalg.py:lapack_signs3)
+    vals, vecs = eigh_small(PtP, lapack_signs=True)
     # k_i = sqrt(lambda_i / N): the reference divides by the point count
     k = torch.sqrt(torch.clamp(vals, min=1e-12) / wsum)
     # descending order like cvSVD's convention (largest first)
@@ -55,17 +62,23 @@ def _weighted_control_points(xw, w):
 
 def _barycentric(xw, ctrl):
     """alphas (..., M, 4) with sum_j alpha_j c_j = x, sum alpha = 1
-    (compute_barycentric_coordinates :383-406)."""
+    (compute_barycentric_coordinates :383-406), and the projector (..., 4,
+    4) onto the directions of C the pseudo-inverse drops (zero where it
+    drops none)."""
     C = torch.cat([ctrl.transpose(-1, -2), torch.ones_like(ctrl[..., None, :, 0])], dim=-2)
     X = torch.cat([xw, torch.ones_like(xw[..., :1])], dim=-1)  # (..., M, 4)
     # SVD pseudo-inverse, NOT inv: for (near-)coplanar world points the PCA
     # control points collapse (third eigenvalue ~ 0) and C goes singular;
     # the reference inverts CC with CV_SVD (PnPsolver.cc:383-406), which
     # degrades gracefully on planar scenes (walls and floors are the common
-    # relocalization case). The truncation decides those sets, so the
-    # pseudo-inverse stays, host check and all
-    Cinv = torch.linalg.pinv(C, rtol=1e-6)
-    return torch.einsum("...ij,...mj->...mi", Cinv, X)
+    # relocalization case). The truncation decides those sets: the SVD is
+    # one-sided Jacobi on C itself, not an eigendecomposition of C^T C,
+    # whose squared condition number would blur the 1e-6 cut into rounding
+    U, S, Vt = svd_small(C)
+    Cinv = pinv_from_svd(U, S, Vt, rtol=1e-6)
+    dropped = (S <= 1e-6 * S[..., :1]).to(C.dtype)
+    P4 = torch.einsum("...ki,...k,...kj->...ij", Vt, dropped, Vt)
+    return torch.einsum("...ij,...mj->...mi", Cinv, X), P4
 
 
 def _fill_MtM(alphas, uv, w, K4):
@@ -161,6 +174,17 @@ def _betas_approx_3(L, rho):
     return torch.stack([b1, b2, b3, z], dim=-1)
 
 
+def _betas_one(dv, rho):
+    """The N = 1 case (Lepetit et al. 2009, section 3.3): the scale of the first
+    null vector that best matches the control points' distances,
+    beta = sum |v_i - v_j| |c_i - c_j| / sum |v_i - v_j|^2."""
+    dn = torch.sqrt(torch.sum(dv[..., 0, :, :] ** 2, dim=-1))          # (..., 6)
+    b1 = torch.sum(dn * torch.sqrt(rho), dim=-1) / torch.clamp(torch.sum(dn * dn, dim=-1),
+                                                                min=1e-30)
+    z = torch.zeros_like(b1)
+    return torch.stack([b1, z, z, z], dim=-1)
+
+
 def _gauss_newton(L, rho, betas, iters: int = 5):
     """Refine betas on the 6 control-distance residuals (:812-830)."""
     b = betas
@@ -206,55 +230,83 @@ def _pose_from_betas(betas, V, alphas, xw, w):
     dc = (pcs - pc0[..., None, :]) * w[..., None]
     dw = xw - pw0[..., None, :]
     H = torch.einsum("...mi,...mj->...ij", dc, dw)   # cam x world
-    # non-finite betas (a singular beta system) would make the SVD raise:
-    # such a hypothesis gets a placeholder here and is marked `bad`
+    # non-finite betas (a singular beta system) give a NaN pose, as in the
+    # reference; `bad` marks such a hypothesis
     bad = ~torch.isfinite(H).all(dim=-1).all(dim=-1)
-    H = torch.where(bad[..., None, None], torch.eye(3, dtype=H.dtype, device=H.device), H)
-    pc0 = torch.where(bad[..., None], torch.zeros_like(pc0), pc0)
-    U, _, Vt = torch.linalg.svd(H)
-    detUV = torch.linalg.det(U @ Vt)
+    U, _, Vt = svd_small(H)
+    detUV = det3(U @ Vt)
     D = torch.stack([torch.ones_like(detUV), torch.ones_like(detUV), detUV], dim=-1)
     R = torch.einsum("...ij,...j,...jk->...ik", U, D, Vt)
     t = pc0 - torch.einsum("...ij,...j->...i", R, pw0)
     return R, t, bad
 
 
+def _beta_cases(xw, uv, w, K4):
+    """The null-space vectors V (..., 4, 4, 3), the alphas, the beta cases
+    (4, ..., 4): the reference's three, each refined by Gauss-Newton, then
+    the N = 1 case; and which sets are planar (see `epnp_pose`)."""
+    ctrl = _weighted_control_points(xw, w)
+    alphas, P4 = _barycentric(xw, ctrl)
+    MtM = _fill_MtM(alphas, uv, w, K4)
+    planar = torch.diagonal(P4, dim1=-2, dim2=-1).sum(-1) > 0.5
+    eye3 = torch.eye(3, dtype=MtM.dtype, device=MtM.device)
+    spurious = torch.einsum("...ij,kl->...ikjl", P4, eye3).reshape(MtM.shape)
+    MtM = MtM + torch.diagonal(MtM, dim1=-2, dim2=-1).sum(-1)[..., None, None] * spurious
+    _, vecs = eigh_small(MtM)                  # ascending eigenvalues
+    # 4 smallest eigenvectors as (4 vectors, 4 control points, 3)
+    V = vecs[..., :, :4].transpose(-1, -2).reshape(*MtM.shape[:-2], 4, 4, 3)
+    rho = _rho(ctrl)
+    dv = _v_diffs(V)
+    L = _L6x10(dv)
+    betas = torch.stack([_gauss_newton(L, rho, approx(L, rho))
+                         for approx in (_betas_approx_1, _betas_approx_2, _betas_approx_3)]
+                        + [_betas_one(dv, rho)])
+    return V, alphas, betas, planar
+
+
+def _pose_errors(betas, V, alphas, xw, uv, w, K4):
+    """Each beta case's pose (R, t) and its weighted reprojection error,
+    infinite where the pose is not finite; the cases as one batch (one SVD
+    for all)."""
+    R, t, bad = _pose_from_betas(betas, V, alphas, xw, w)
+    xc = torch.einsum("...ij,...mj->...mi", R, xw) + t[..., None, :]
+    z = torch.clamp(xc[..., 2], min=1e-9)
+    up = K4[0] * xc[..., 0] / z + K4[2]
+    vp = K4[1] * xc[..., 1] / z + K4[3]
+    e = (up - uv[..., 0]) ** 2 + (vp - uv[..., 1]) ** 2
+    inf = torch.full((), float("inf"), dtype=xw.dtype, device=xw.device)
+    e = torch.where(bad, inf, torch.sum(e * w, dim=-1))
+    return torch.where(torch.isfinite(e), e, inf), R, t
+
+
 def epnp_pose(xw, uv, w, K4):
     """Weighted batched EPnP. xw: (..., M, 3); uv: (..., M, 2) pixels;
     w: (..., M) weights (0 masks a point out). Returns (R, t, ok) with the
     best of the three beta cases by weighted reprojection error
-    (compute_pose :449-478)."""
-    ctrl = _weighted_control_points(xw, w)
-    alphas = _barycentric(xw, ctrl)
-    MtM = _fill_MtM(alphas, uv, w, K4)
-    _, vecs = torch.linalg.eigh(MtM)           # ascending eigenvalues
-    # 4 smallest eigenvectors as (4 vectors, 4 control points, 3)
-    V = vecs[..., :, :4].transpose(-1, -2).reshape(*MtM.shape[:-2], 4, 4, 3)
-    rho = _rho(ctrl)
-    L = _L6x10(_v_diffs(V))
-    inf = torch.full((), float("inf"), dtype=xw.dtype, device=xw.device)
+    (compute_pose :449-478).
 
-    def err_of(betas):
-        R, t, bad = _pose_from_betas(betas, V, alphas, xw, w)
-        xc = torch.einsum("...ij,...mj->...mi", R, xw) + t[..., None, :]
-        z = torch.clamp(xc[..., 2], min=1e-9)
-        up = K4[0] * xc[..., 0] / z + K4[2]
-        vp = K4[1] * xc[..., 1] / z + K4[3]
-        e = (up - uv[..., 0]) ** 2 + (vp - uv[..., 1]) ** 2
-        return torch.where(bad, inf, torch.sum(e * w, dim=-1)), R, t
-
-    best_e = best_R = best_t = None
-    for approx in (_betas_approx_1, _betas_approx_2, _betas_approx_3):
-        betas = _gauss_newton(L, rho, approx(L, rho))
-        e, R, t = err_of(betas)
-        e = torch.where(torch.isfinite(e), e, inf)
-        if best_e is None:
-            best_e, best_R, best_t = e, R, t
-        else:
-            take = e < best_e
-            best_e = torch.where(take, e, best_e)
-            best_R = torch.where(take[..., None, None], R, best_R)
-            best_t = torch.where(take[..., None], t, best_t)
+    A planar set (the pseudo-inverse of C drops a direction: the third PCA
+    axis has collapsed) departs from the reference. Every alpha is then
+    orthogonal to the dropped direction n, so the three control-point
+    moves n (x) R^3 change no image residual: MtM has three spurious null
+    vectors, and which of them the 4 smallest eigenvectors mix with the
+    true one is set by rounding (the reference's planar refit is right, or
+    off by 3e-3 to 5e-2, depending on the alphas' last bits). Here they are pushed out
+    of the null space (MtM + trace(MtM) P), which leaves the true
+    direction alone at the bottom, and the N = 1 case joins the three. Its
+    pose is computed for every set, planar or not, in the same batch as the
+    three (a program cannot skip it by the data), and kept only on a planar
+    one: a quarter more work in the pose's SVD and reprojection, no more
+    launches."""
+    V, alphas, betas, planar = _beta_cases(xw, uv, w, K4)
+    e, R, t = _pose_errors(betas, V, alphas, xw, uv, w, K4)
+    best_e, best_R, best_t = e[0], R[0], t[0]
+    for i in (1, 2, 3):
+        # the N = 1 case only on a planar set (where the reference has none)
+        take = (e[i] < best_e) & planar if i == 3 else e[i] < best_e
+        best_e = torch.where(take, e[i], best_e)
+        best_R = torch.where(take[..., None, None], R[i], best_R)
+        best_t = torch.where(take[..., None], t[i], best_t)
     ok = (torch.isfinite(best_e)
           & torch.isfinite(best_R).all(dim=-1).all(dim=-1)
           & torch.isfinite(best_t).all(dim=-1))

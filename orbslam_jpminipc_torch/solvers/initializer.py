@@ -15,6 +15,14 @@ reference draws them with `jax.random`, which torch cannot reproduce, so a
 caller either draws its own (`sample_minimal_sets`, a `torch.Generator`)
 or passes the reference's. The candidate poses of a reconstruction are
 checked as one batch.
+
+Nothing here reads the host: the eigendecompositions and SVDs are the
+Jacobi solvers of ops/small_linalg_cuda.py (on the CPU the SVDs are
+LAPACK's, as the reference's: `_svd`), the 3x3
+determinants and inverses closed forms, and every pick of one row (the best hypothesis, the
+best candidate pose) a 1-element index (a 0-d tensor as an index is read
+on the host). So an attempt runs as one captured program
+(frontend/tracking.py).
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ import torch
 
 from ..geometry import triangulate as tri
 from ..geometry.epipolar import K_matrix
+from ..ops.small_linalg_cuda import eigh_small, svd_small
+from .linalg3 import det3, inv3_exact
 
 
 class InitResult(NamedTuple):
@@ -65,8 +75,28 @@ def sample_minimal_sets(generator: torch.Generator, mask: torch.Tensor, n_hyp: i
     slots score -1), ties to the lower index."""
     n = mask.shape[0]
     scores = torch.rand((n_hyp, n), generator=generator, device=mask.device)
-    scores = torch.where(mask[None, :], scores, -1.0)
+    return select_minimal_sets(scores, mask, k)
+
+
+def select_minimal_sets(scores: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+    """The minimal sets of drawn scores (n_hyp, n): per row the top k over
+    the valid slots (invalid slots score -1), ties to the lower index. A
+    score above 1 (never drawn: uniform scores lie in [0, 1)) is a forced
+    pick, valid or not: `scores_for_sets` makes such rows. On the device,
+    without a host read: a program takes the scores, drawn before it runs."""
+    scores = torch.where(mask[None, :] | (scores > 1.0), scores, -1.0)
     return torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :k]
+
+
+def scores_for_sets(sets: torch.Tensor, n: int) -> torch.Tensor:
+    """Scores (n_hyp, n) that `select_minimal_sets` turns back into `sets`
+    (n_hyp, k), each row's indices in order: a replayed set (another
+    implementation's draw) through a program that takes scores."""
+    sets = sets.to(torch.int64)
+    n_hyp, k = sets.shape
+    rank = torch.arange(k + 1, 1, -1, dtype=torch.float32, device=sets.device)
+    return torch.zeros((n_hyp, n), dtype=torch.float32, device=sets.device).scatter_(
+        1, sets, rank.expand(n_hyp, k).contiguous())
 
 
 def _fit_h(p1, p2):
@@ -80,7 +110,7 @@ def _fit_h(p1, p2):
     r2 = torch.stack([x1, y1, o, z, z, z, -x2 * x1, -x2 * y1, -x2], dim=-1)
     A = torch.cat([r1, r2], dim=-2)
     AtA = torch.einsum("...ki,...kj->...ij", A, A)
-    _, vecs = torch.linalg.eigh(AtA)
+    _, vecs = eigh_small(AtA)
     h = vecs[..., :, 0]
     return h.reshape(*h.shape[:-1], 3, 3)
 
@@ -93,9 +123,9 @@ def _fit_f(p1, p2):
     o = torch.ones_like(x1)
     A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, o], dim=-1)
     AtA = torch.einsum("...ki,...kj->...ij", A, A)
-    _, vecs = torch.linalg.eigh(AtA)
+    _, vecs = eigh_small(AtA)
     f = vecs[..., :, 0].reshape(*x1.shape[:-1], 3, 3)
-    u, s, vt = torch.linalg.svd(f)
+    u, s, vt = _svd(f)
     s = torch.cat([s[..., :2], torch.zeros_like(s[..., 2:])], dim=-1)
     return u @ (s[..., :, None] * vt)
 
@@ -171,17 +201,36 @@ def _check_rt(R, t, uv1, uv2, mask, K4, th2):
     return n_good, par, xw, good
 
 
+def _svd(M):
+    """The initializer's 3x3 SVDs (F's rank-2 projection, E, Faugeras's A).
+    On a card the Jacobi kernel (no host read). On the CPU LAPACK's gesdd,
+    the reference's own routine there: the initial map turns on the pose's
+    last bits, and a Jacobi SVD's rounding is LAPACK's within 3e-7, not to
+    the bit. With the plain Jacobi SVD here, tests/test_torch_reloc.py's
+    per-frame point counts part from the reference's at frame 6 (535
+    against 534); every other parity test passes. The Jacobi path is held
+    on the CPU by tests/test_torch_initializer.py's `*_with_the_cards_svd`
+    tests and on the card by chip_smoke.py's system run (the initial pose
+    and map against the JAX outcome). The eigendecompositions are the
+    Jacobi solver on either device."""
+    if M.is_cuda:
+        return svd_small(M)
+    return torch.linalg.svd(M)
+
+
 def _decompose_e(E):
     """4 candidate (R, t) from an essential matrix (DecomposeE :907-927)."""
-    u, _, vt = torch.linalg.svd(E)
+    u, _, vt = _svd(E)
     t = u[:, 2]
     t = t / torch.clamp(torch.linalg.norm(t), min=1e-12)
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    # W = [[0, -1, 0], [1, 0, 0], [0, 0, 1]], made on the device (a list or
+    # a scalar written into it would be a host copy, which a capture refuses)
+    e = torch.eye(3, dtype=E.dtype, device=E.device)
+    W = torch.stack([-e[1], e[0], e[2]])
     R1 = u @ W @ vt
     R2 = u @ W.T @ vt
-    R1 = R1 * torch.sign(torch.linalg.det(R1))
-    R2 = R2 * torch.sign(torch.linalg.det(R2))
+    R1 = R1 * torch.sign(det3(R1))
+    R2 = R2 * torch.sign(det3(R2))
     return (R1, R2), t
 
 
@@ -196,26 +245,30 @@ def _reconstruct_f(F, uv1, uv2, inliers, K4, sigma2, min_parallax, min_triangula
     n_inliers = inliers.sum()
     min_good = torch.clamp((0.9 * n_inliers).to(torch.int32), min=int(min_triangulated))
     n_similar = torch.sum(n > 0.7 * n_max)
-    best = torch.argmax(n)
-    ok = (n_max >= min_good) & (n_similar == 1) & (par[best] > min_parallax)
-    return ok, Rs[best], ts[best], pts[best], good[best], n[best]
+    best = torch.argmax(n).reshape(1)
+    pick = lambda x: x[best][0]
+    ok = (n_max >= min_good) & (n_similar == 1) & (pick(par) > min_parallax)
+    return ok, pick(Rs), pick(ts), pick(pts), pick(good), pick(n)
 
 
 def _reconstruct_h(H, uv1, uv2, inliers, K4, sigma2, min_parallax, min_triangulated):
     """Faugeras SVD-based decomposition (ReconstructH :570-730): 8 motion
     hypotheses from H = K A K^-1, disambiguated by CheckRT."""
     K = K_matrix(K4)
-    Kinv = torch.linalg.inv(K)
+    Kinv = inv3_exact(K)
     A = Kinv @ H @ K
-    U, w, Vt = torch.linalg.svd(A)
-    s = torch.linalg.det(U) * torch.linalg.det(Vt)
+    U, w, Vt = _svd(A)
+    s = det3(U) * det3(Vt)
     d1, d2, d3 = w[0], w[1], w[2]
 
     aux1 = torch.sqrt(torch.clamp((d1 * d1 - d2 * d2) / torch.clamp(d1 * d1 - d3 * d3, min=1e-12), min=0))
     aux3 = torch.sqrt(torch.clamp((d2 * d2 - d3 * d3) / torch.clamp(d1 * d1 - d3 * d3, min=1e-12), min=0))
-    sgn = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=H.dtype, device=H.device)
-    sgn3 = torch.tensor([1.0, -1.0, 1.0, -1.0], dtype=H.dtype, device=H.device)
-    sgn_s = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=H.dtype, device=H.device)
+    # the sign patterns [1, 1, -1, -1], [1, -1, 1, -1] and [1, -1, -1, 1],
+    # made on the device (a list would be a host upload)
+    i = torch.arange(4, device=H.device)
+    sgn = torch.where(i < 2, 1.0, -1.0).to(H.dtype)
+    sgn3 = torch.where(i % 2 == 0, 1.0, -1.0).to(H.dtype)
+    sgn_s = sgn * sgn3
     x1s = sgn * aux1
     x3s = sgn3 * aux3
 
@@ -247,15 +300,16 @@ def _reconstruct_h(H, uv1, uv2, inliers, K4, sigma2, min_parallax, min_triangula
     ts = ts / torch.clamp(torch.linalg.norm(ts, dim=-1, keepdim=True), min=1e-12)
 
     n, par, pts, good = _check_rt(Rs, ts, uv1, uv2, inliers, K4, 4.0 * sigma2)
-    best = torch.argmax(n)
+    best = torch.argmax(n).reshape(1)
+    pick = lambda x: x[best][0]
     n_max = n.max()
     second = torch.sort(n).values[-2]
     n_inliers = inliers.sum()
     # reference gates (Initializer.cc:712-729): clear winner (1.75x), enough
     # parallax, >= 90% of inliers triangulated and >= minTriangulated
-    ok = ((second < 0.75 * n_max) & (par[best] >= min_parallax)
+    ok = ((second < 0.75 * n_max) & (pick(par) >= min_parallax)
           & (n_max > min_triangulated) & (n_max > 0.9 * n_inliers))
-    return ok, Rs[best], ts[best], pts[best], good[best], n[best]
+    return ok, pick(Rs), pick(ts), pick(pts), pick(good), pick(n)
 
 
 def initialize(
@@ -280,26 +334,26 @@ def initialize(
 
     # homography hypotheses
     Hn = _fit_h(p1, p2)
-    H = torch.linalg.inv(T2) @ Hn @ T1  # un-normalized
-    Hinv = torch.linalg.inv(H)
+    H = inv3_exact(T2) @ Hn @ T1  # un-normalized
+    Hinv = inv3_exact(H)
     h_scores, h_in = _score_h(H, Hinv, uv1[None], uv2[None], mask[None], inv_sigma2)
-    bh = torch.argmax(h_scores)
-    SH = h_scores[bh]
+    bh = torch.argmax(h_scores).reshape(1)
+    SH = h_scores[bh][0]
 
     # fundamental hypotheses
     Fn = _fit_f(p1, p2)
     F = T2.T @ Fn @ T1
     f_scores, f_in = _score_f(F, uv1[None], uv2[None], mask[None], inv_sigma2)
-    bf = torch.argmax(f_scores)
-    SF = f_scores[bf]
+    bf = torch.argmax(f_scores).reshape(1)
+    SF = f_scores[bf][0]
 
     RH = SH / torch.clamp(SH + SF, min=1e-12)
     use_h = RH > 0.40
 
     ok_h, Rh, th, pts_h, good_h, n_h = _reconstruct_h(
-        H[bh], uv1, uv2, h_in[bh], K4, sigma2, min_parallax, min_triangulated)
+        H[bh][0], uv1, uv2, h_in[bh][0], K4, sigma2, min_parallax, min_triangulated)
     ok_f, Rf, tf, pts_f, good_f, n_f = _reconstruct_f(
-        F[bf], uv1, uv2, f_in[bf], K4, sigma2, 1.0, min_triangulated)
+        F[bf][0], uv1, uv2, f_in[bf][0], K4, sigma2, 1.0, min_triangulated)
 
     pick = lambda a, b: torch.where(use_h, a, b)
     return InitResult(

@@ -7,8 +7,15 @@ from __future__ import annotations
 import torch
 
 
-def inv3(M: torch.Tensor) -> torch.Tensor:
-    """Batched closed-form 3x3 inverse (adjugate / det)."""
+def det3(M: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form 3x3 determinant (no library call, no host read)."""
+    return (M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
+            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
+            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
+
+
+def _adjugate3(M: torch.Tensor):
+    """(adjugate, determinant) of a batch of 3x3 matrices."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
@@ -22,12 +29,26 @@ def inv3(M: torch.Tensor) -> torch.Tensor:
     H = b * g - a * h
     I = a * e - b * d
     det = a * A + b * D + c * G
-    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-18, torch.full_like(det, 1e-18), det)
     adj = torch.stack(
         [torch.stack([A, B, C], -1), torch.stack([D, E, F], -1), torch.stack([G, H, I], -1)],
         dim=-2,
     )
+    return adj, det
+
+
+def inv3(M: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form 3x3 inverse (adjugate / det), the determinant
+    kept away from 0."""
+    adj, det = _adjugate3(M)
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-18, torch.full_like(det, 1e-18), det)
     return adj * inv_det[..., None, None]
+
+
+def inv3_exact(M: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form 3x3 inverse (adjugate / det): a singular matrix
+    gives infinities or NaN, as an LU inverse does, and nothing waits."""
+    adj, det = _adjugate3(M)
+    return adj / det[..., None, None]
 
 
 def solve6_spd(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

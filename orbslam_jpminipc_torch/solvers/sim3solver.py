@@ -6,7 +6,9 @@ Horn's 1987 absolute-orientation closed form (computeT, :226-332:
 centroids, M = Pr2 Pr1^T, the 4x4 N matrix whose top eigenvector is the
 rotation quaternion, scale from the rotated-cloud projection) and a
 two-way reprojection gate with chi2 <= 9.210 sigma^2 (CheckInliers
-:335-359). Here ALL hypotheses are one batched eigendecomposition.
+:335-359). Here ALL hypotheses are one batched eigendecomposition, the
+Jacobi solver of ops/small_linalg_cuda.py: nothing reads the host, so the
+RANSAC runs as one captured program (pipeline/loop_closing.py).
 
 Correspondences are in CAMERA coordinates of the two keyframes
 (Sim3Solver.cc:94-98). The estimated T12 maps camera-2 coordinates to
@@ -25,6 +27,7 @@ import torch
 
 from ..geometry import camera as cam
 from ..geometry.se3 import mat_from_quat
+from ..ops.small_linalg_cuda import eigh_small
 from . import initializer
 
 N_HYP = 128
@@ -69,7 +72,7 @@ def horn_sim3(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = False):
         ],
         dim=-2,
     )
-    _, vecs = torch.linalg.eigh(N)
+    _, vecs = eigh_small(N)
     R = mat_from_quat(vecs[..., :, -1])  # top eigenvector = [w, x, y, z]
     RPr2 = torch.einsum("...ij,...mj->...mi", R, Pr2)
     if fix_scale:

@@ -35,6 +35,7 @@ from orbslam_jpminipc_torch.config import SlamConfig
 from orbslam_jpminipc_torch.frontend import tracking as ttracking
 from orbslam_jpminipc_torch.frontend.frame import build_frame
 from orbslam_jpminipc_torch.solvers import initializer as tinit
+from orbslam_jpminipc_torch.solvers import small_linalg
 
 torch.set_num_threads(2)
 
@@ -113,6 +114,14 @@ def test_initialize_matches_jax_on_fixture_frames():
     np.testing.assert_allclose(res.t.numpy(), jres.t, atol=T_TOL)
 
 
+def test_initialize_on_fixture_frames_with_the_cards_svd(monkeypatch):
+    """The same attempt with the card's SVDs: `initializer._svd` takes
+    LAPACK on the CPU and the Jacobi kernel on a card, so here its plain
+    version, held to the reference within the same bounds."""
+    monkeypatch.setattr(tinit, "_svd", small_linalg.svd_small)
+    test_initialize_matches_jax_on_fixture_frames()
+
+
 def _angle_deg(a, b):
     c = np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b))
     return np.degrees(np.arccos(np.clip(c, -1.0, 1.0)))
@@ -138,6 +147,15 @@ def test_initialize_matches_jax(planar, seed):
     rot_err = lambda R: np.degrees(Rotation.from_matrix(R.astype(np.float64) @ R_true.T).magnitude())
     assert rot_err(got.R.numpy()) <= rot_err(ref.R) + ROT_MARGIN_DEG
     assert _angle_deg(got.t.numpy(), t_true) <= _angle_deg(ref.t, t_true) + DIR_MARGIN_DEG
+
+
+@pytest.mark.parametrize("planar", [False, True], ids=["general", "planar"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_initialize_matches_jax_with_the_cards_svd(planar, seed, monkeypatch):
+    """The synthetic scenes with the card's SVDs (the plain Jacobi version,
+    as on the fixture's frames above), within the same bounds."""
+    monkeypatch.setattr(tinit, "_svd", small_linalg.svd_small)
+    test_initialize_matches_jax(planar, seed)
 
 
 def test_initialize_refuses_pure_rotation_like_jax():

@@ -11,9 +11,11 @@ which closes. Each run logs every program's first call per variant
 (`CallLog`). Held, with equal bits: each logged call's outputs against its
 function run directly on the same inputs, and against a copy taken at the
 call (a later call must not overwrite them); extraction through its
-programs against the eager extractor; the relocalization candidate cut
-around its RANSAC against the one-program `_reloc_candidate_prog` from the
-same generator state; and every shape the runs reached was one that
+programs against the eager extractor; the relocalization candidate program
+(its RANSAC sets selected from scores drawn before it) against
+`_reloc_candidate_prog` on the generator's sets from the same state, and
+the initialization attempt and the Sim3 RANSAC programs likewise against
+their eager compositions; and every shape the runs reached was one that
 `capture_programs` names ahead of time. The `gpu`-marked tests make the
 same two runs on the card, the programs captured, and hold each replay to
 its eager function: equal bits, the essential graph (atomic scatter-adds)
@@ -39,7 +41,7 @@ from orbslam_jpminipc_torch.map.keyframe_db import KeyFrameDatabase
 from orbslam_jpminipc_torch.map.map_state import MapState
 from orbslam_jpminipc_torch.pipeline.loop_closing import LoopCloser
 from orbslam_jpminipc_torch.pipeline.system import Slam
-from orbslam_jpminipc_torch.solvers import initializer, pnp
+from orbslam_jpminipc_torch.solvers import initializer, pnp, sim3solver
 from orbslam_jpminipc_torch.utils.program import CallLog, ProgramSet
 from orbslam_jpminipc_torch.utils.tracing import get_tracer
 from orbslam_jpminipc_torch.vocab.vocabulary import build_vocabulary
@@ -51,8 +53,9 @@ SLAM_FIXTURE = os.path.join(REPO, "orbslam_jpminipc_torch", "data", "slam_fixtur
 CFG_KW = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=600, max_kf=64,
               max_mp=8192, local_ba_obs=8192, pipelined_tracking=False, async_mapping=False)
 N_BEFORE, N_NOISE, N_AFTER = 9, 2, 3
-HOST_SETS = ("track_frame", "track_local_map", "reloc_match", "reloc_opt", "reloc_refine")
-LOOP_SETS = ("mutual", "proj", "fuse", "sim3_opt", "essential_graph")
+HOST_SETS = ("track_frame", "track_local_map", "reloc_candidate", "reloc_refine",
+             "init_attempt")
+LOOP_SETS = ("mutual", "proj", "fuse", "sim3_opt", "sim3_ransac", "essential_graph")
 
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import loop_scene  # noqa: E402
@@ -108,12 +111,9 @@ def lost_run(device):
     slam._compile_programs()
     compiled = _signatures(slam)
     tr = slam.tracker
-    # the minimal sets drawn on the CPU: the same sets on either device
+    # the RANSAC scores drawn on the CPU: the same sets on either device
     gen = torch.Generator().manual_seed(slam.cfg.seed)
-    tr.sampler = lambda mask, n_hyp: initializer.sample_minimal_sets(
-        gen, mask.cpu(), n_hyp).to(mask.device)
-    tr.pnp_sampler = lambda mask, n_hyp: pnp.sample_minimal_sets(
-        mask.cpu(), n_hyp, gen).to(mask.device)
+    tr.draw_scores = lambda n_hyp, n: torch.rand((n_hyp, n), generator=gen).to(device)
     candidates = []
     cut = tr._reloc_candidate
 
@@ -222,6 +222,9 @@ def test_host_programs_keep_both_feature_budgets(lost):
     assert names["track_local_map"] == [f"track_local_map[4096x{n2}]",
                                         f"track_local_map[4096x{n1}]"]
     assert names["reloc_refine"] == [f"reloc_refine[{n2}]", f"reloc_refine[{n2}x{n1}]"]
+    assert names["reloc_candidate"] == sorted([f"reloc_candidate[256x{n1}x{n2}]",
+                                               f"reloc_candidate[256x{n2}]"])
+    assert names["init_attempt"] == [f"init_attempt[200x{n2}]"]
     assert sorted(slam.tracker.extraction._budgets) == [n1, n2]
 
 
@@ -268,9 +271,10 @@ def test_extraction_programs_equal_the_eager_extractor(lost, budget):
 
 
 def test_cut_candidate_equals_the_one_program(lost):
-    """The candidate as the tracker runs it (match program, eager PnP on
-    `pnp_sampler`'s sets, optimization program) against
-    `_reloc_candidate_prog` from the same generator state: equal bits."""
+    """The candidate as the tracker runs it (one program, its sets selected
+    from scores drawn before the replay) against `_reloc_candidate_prog` on
+    the generator's sets (`pnp.sample_minimal_sets`) from the same state:
+    equal bits."""
     slam, _, _, (gen, candidates), _ = lost
     tr = slam.tracker
     ok = 0
@@ -278,10 +282,39 @@ def test_cut_candidate_equals_the_one_program(lost):
         gen.set_state(state)
         got = tr._reloc_candidate(*args)
         gen.set_state(state)
-        want = ttracking._reloc_candidate_prog(tr.pnp_sampler, *args)
+        want = ttracking._reloc_candidate_prog(
+            lambda mask, n_hyp: pnp.sample_minimal_sets(mask, n_hyp, gen), *args)
         assert _equal(got, want)
         ok += bool(got[2])
     assert ok >= 2
+
+
+def test_init_attempt_program_equals_its_composition(lost):
+    """The initialization attempt's logged call against `_init_attempt` on
+    the sets `initializer.sample_minimal_sets` draws from the same scores:
+    equal bits, and the attempt ran as a program of the n2 shape."""
+    slam, log, *_ = lost
+    calls = _calls(log, "init_attempt")
+    n2 = 2 * CFG_KW["n_features"]
+    assert [c.name for c in calls] == [f"init_attempt[200x{n2}]"]
+    scores, *args = calls[0].inputs
+    want = ttracking._init_attempt(
+        lambda mask, n_hyp: initializer.select_minimal_sets(scores, mask, 8), *args)
+    assert _equal(calls[0].out, want)
+
+
+def test_sim3_ransac_program_equals_its_composition(loop):
+    """The Sim3 RANSAC's logged call against `solve_sim3` on the sets its
+    scores select: equal bits; the replayed-set route gives the same."""
+    _, log, *_ = loop
+    (call,) = _calls(log, "lc_sim3_ransac")
+    scores, p1, p2, uv1, uv2, mask, *rest = call.inputs
+    sets = initializer.select_minimal_sets(scores, mask, 3)
+    want = sim3solver.solve_sim3(sets, p1, p2, uv1, uv2, mask, *rest)
+    assert _equal(call.out, want)
+    again = initializer.select_minimal_sets(
+        initializer.scores_for_sets(sets, mask.shape[0]), mask, 3)
+    assert torch.equal(again, sets)
 
 
 def test_the_run_reached_only_shapes_captured_ahead(lost):
@@ -296,7 +329,7 @@ def test_the_run_reached_only_shapes_captured_ahead(lost):
 def test_loop_run_closes_through_the_programs(loop):
     closer, log, compiled, closed = loop
     assert closed == 8
-    assert {c.name.split("[")[0] for c in log.calls} == {f"lc_{s}" for s in LOOP_SETS[:4]} | {
+    assert {c.name.split("[")[0] for c in log.calls} == {f"lc_{s}" for s in LOOP_SETS[:5]} | {
         "essential_graph"}
     # every shape reached was captured ahead
     assert {p.name for s in closer.programs.values() for p in s.programs.values()} == compiled
@@ -370,5 +403,5 @@ def test_loop_programs_captured_equal_eager_on_the_card(card):
     closer, log, compiled, closed = loop_run(card)
     assert closed == 8
     names = _hold_on_card(log)
-    assert {n.split("[")[0] for n in names} == {f"lc_{s}" for s in LOOP_SETS[:4]} | {
+    assert {n.split("[")[0] for n in names} == {f"lc_{s}" for s in LOOP_SETS[:5]} | {
         "essential_graph"}
