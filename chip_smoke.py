@@ -22,8 +22,11 @@ Phases (any failure raises, so the script exits non-zero):
                  bound from the level shapes. Then `small_linalg` (the
                  solvers' Jacobi kernel) on every call of one `solve_pnp`,
                  `solve_sim3` and `initialize` and on degenerate inputs,
-                 against its plain version and torch.linalg in float64,
-                 timed with its bound (`kernel_small_linalg`); and what
+                 against its plain version (the same vector in each
+                 position, the same signs, where rounding cannot decide
+                 them) and torch.linalg in float64, timed with its bound
+                 (`kernel_small_linalg`; tools/small_linalg_compare.py
+                 times it against an earlier commit's build); and what
                  EPnP's N = 1 case costs on every set (`epnp_n1_cost`)
   4. slice       the fused step (FusedContext/FusedStep) on the card over the
                  fixture's frames from the JAX reference's recorded state,
@@ -48,8 +51,17 @@ Phases (any failure raises, so the script exits non-zero):
                  run. The step's launches from the host (torch.profiler's
                  runtime events: at most 11 graph replays and 40 launches)
                  and host reads by source line (sync debug mode), captured
-                 against eager. The local-BA stages (5 and 10 iterations) on
-                 the last keyframe's problem after 10 system fixture frames:
+                 against eager. A warmed system over 10 system fixture
+                 frames with the map mirror's stage programs
+                 (map/device_map.py: the point scatter, triangulation,
+                 fusion, local BA with its gathers, the attrs pass, the
+                 slice) held at each first call per shape against their
+                 functions run eagerly right after the replay
+                 (`hold_mirror_programs`: equal bits, the BA by chi2 and
+                 outlier flags, the scatter by the mirror's rows), each
+                 replayed; what a 4096-row bucket's capture costs mid-run.
+                 The local-BA stages (5 and 10 iterations) on
+                 the last keyframe's problem after those frames:
                  chi2 and outlier flags against two eager runs, ms. The
                  host path's programs (extraction, frame-to-frame and
                  local-map tracking, the relocalization candidate's two
@@ -85,7 +97,9 @@ Phases (any failure raises, so the script exits non-zero):
                  the sequence with each mapping stage run alone under
                  torch.profiler (`stage_profile`): per `*_d`/`*_m` stage,
                  ms to the end of its device work, kernels, kernel time and
-                 launches from the host.
+                 launches from the host, beside the eager stages'; the
+                 `*_d` stages (one replay each) at most STAGE_LAUNCHES_MAX
+                 launches a call.
   8. reloc_async `Slam` at the shipping widths with the 64k-word tree
                  vocabulary, twice. Run R (`enable_loop_closing=False`,
                  synchronous mapping): the 28 frames, 3 noise frames
@@ -332,6 +346,14 @@ EG_ULPS = 16
 # the mapping stages profiled one call at a time after the system run, on
 # these frames of the forced-loss fixture (frames 28-32 of the sequence)
 STAGE_PROFILE_FRAMES = 5
+# launches from the host a *_d stage may make: its inputs' one packed copy,
+# one replay, the outputs' copy, the read's gather and copy, and an attrs
+# pass applied on the way in (its scatter's copy and replay)
+STAGE_LAUNCHES_MAX = 10
+# stage_profile of the eager stages (before they ran as captured programs)
+# on the same frames, PERF.md section 5: launches and host ms per call
+EAGER_STAGES = {"triangulate_d": (400, "16.7-28.6"), "fuse_d": (145, "27.7-41.1"),
+              "fuse_m": (68, "22.7-35.3"), "ba_d": (49, "19.1-28.2"), "ba2_d": (36, "15.6-22.1")}
 # the card's published peaks (NVIDIA H100 SXM data sheet) for the kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -787,20 +809,15 @@ def _sl_hold(torch, kind, A, kw):
         res = (torch.linalg.matrix_norm(Ag @ Vg - Vg * wg[:, None, :]) / norm).max()
         orth = (Vg.mT @ Vg - eye).abs().amax((-2, -1)).max()
         wl = torch.linalg.eigvalsh(Ag)
-        # the sign convention, on the columns whose eigenvalue stands apart
-        # (1e-3 of |A| from the others): in a cluster the vectors are any
-        # basis of its space, and the two versions' rounding picks another
-        gap = (wl[:, :, None] - wl[:, None, :]).abs() + torch.eye(n, device=A.device) * 1e30
-        apart = gap.amin(-1) > 1e-3 * norm[:, None]
-        agree = torch.einsum("bij,bij->bj", Vg, Vp[good]) > 0
+        apart = _sl_apart(torch, wl, norm, Vp[good], kw.get("lapack_signs", False))
         row.update(residual=float(res), orthogonality=float(orth),
                    dw_plain=float(((wg - wp[good]).abs().amax(-1) / norm).max()),
                    dw_library=float(((wg - wl).abs().amax(-1) / norm).max()),
-                   same_signs=float(agree[apart].float().mean()) if apart.any() else 1.0)
+                   **_sl_same(torch.einsum("bij,bij->bj", Vg, Vp[good]), apart))
         out_bad = (~torch.isfinite(w[bad])).all() and (~torch.isfinite(V[bad])).all()
     else:
         U, S, Vt = (x.double() for x in k.svd_small(A))
-        Sp = plain.svd_small(A)[1].double()
+        Sp, Vtp = (x.double() for x in plain.svd_small(A)[1:])
         row["sweeps"] = plain.SWEEPS["svd"] - sweeps0["svd"]
         Ug, Sg, Vtg = U[good], S[good], Vt[good]
         rec = (torch.linalg.matrix_norm(Ug * Sg[:, None, :] @ Vtg - A64[good]) / norm).max()
@@ -813,6 +830,8 @@ def _sl_hold(torch, kind, A, kw):
                    rank_1e6=sorted(set(rank.tolist())),
                    rank_equal_plain=bool(torch.equal(rank, (Sp[good] > 1e-6 * Sp[good][:, :1]).sum(-1))),
                    rank_equal_library=bool(torch.equal(rank, (Sl > 1e-6 * Sl[:, :1]).sum(-1))))
+        apart = _sl_apart(torch, Sl, norm, Vtp[good].mT, False)
+        row.update(_sl_same(torch.einsum("bji,bji->bj", Vtg, Vtp[good]), apart))
         out_bad = (~torch.isfinite(U[bad])).all() and (~torch.isfinite(S[bad])).all()
     row["nan_rows"] = int(bad.sum())
     row["nan_rows_give_nan"] = bool(out_bad) if bad.any() else None
@@ -822,8 +841,35 @@ def _sl_hold(torch, kind, A, kw):
     row["worst"] = max(inv)
     row["ok"] = (row["worst"] <= SL_TOL and row.get("rank_equal_plain", True)
                  and row.get("rank_equal_library", True) and row["nan_rows_give_nan"] is not False
-                 and row.get("same_signs", 1.0) >= 0.99)
+                 and row.get("signs_differ", 0) == 0 and row.get("same_order", True))
     return row
+
+
+def _sl_same(dots, apart):
+    """Order and signs against the plain version, from the dot products of
+    each output vector with the plain version's at its position, over the
+    columns `_sl_apart` keeps: the same vector (|dot| near 1) and the same
+    sign (dot > 0)."""
+    d = dots[apart]
+    return {"same_order": bool((d.abs() > 0.99).all()), "signs_differ": int((d <= 0).sum()),
+            "columns_held": int(apart.sum())}
+
+
+def _sl_apart(torch, values, norm, vectors, lapack):
+    """The columns whose sign convention is decided beyond rounding: the
+    value stands apart from the others (1e-3 of |A|: in a cluster the
+    vectors are any basis of its space, and two versions' rounding picks
+    another) and, under the largest-component rule, that component leads
+    the next by 1e-4 (a near tie is decided by rounding)."""
+    n = values.shape[-1]
+    eye = torch.eye(n, dtype=values.dtype, device=values.device)
+    gap = (values[:, :, None] - values[:, None, :]).abs() + eye * 1e30
+    apart = gap.amin(-1) > 1e-3 * norm[:, None]
+    if not lapack:
+        top = vectors.abs().sort(dim=-2, descending=True).values
+        if n > 1:
+            apart &= top[:, 0] - top[:, 1] > 1e-4
+    return apart
 
 
 def epnp_n1_cost(torch, smi):
@@ -1221,32 +1267,129 @@ def hold_programs(torch, calls, tag):
     return rows
 
 
+def hold_mirror_programs(torch, dm, fn):
+    """Run `fn` with the map mirror's stage programs (map/device_map.py)
+    held at their first call per shape and variant: right after the replay,
+    while the mirror is as it read it, the stage's function runs eagerly on
+    the same inputs. Equal bits for the triangulation, fusion, attrs and
+    slice programs; the local BA (index_add_ atomics) within GRAPH_BA_CHI2_REL
+    of the eager chi2 and GRAPH_BA_FLAG_SHARE of its outlier flags; the
+    scatter by the mirror's rows against the rows it was given. Every other
+    result (copied out) must be unchanged at the end (no later replay
+    overwrote it).
+    Returns (rows, fn's result); raises where one is off."""
+    from torch.utils import _pytree as pytree
+
+    leaves = pytree.tree_leaves
+    rows, kept = [], []
+    seen = set()
+
+    def hold(key, ps, variant, inputs, out):
+        prog = ps.program(inputs)
+        dev = [x.to(dm.device) for x in inputs]
+        row = {"program": prog.name, "variant": repr(variant),
+               "replayed": variant in prog.variants}
+        if key == "scatter":
+            ids = dev[0].long()
+            mirror = (dm.mp_xyz, dm.mp_desc, dm.mp_normal, dm.mp_min_dist, dm.mp_max_dist,
+                      dm.mp_valid)
+            row["equal_bits"] = all(torch.equal(t[ids], x) for t, x in zip(mirror, dev[1:]))
+        else:
+            with torch.no_grad():
+                eager = leaves(ps.fn(variant, *dev))
+            got = leaves(out)
+            if key == "local_ba":
+                chi2 = [float(got[3]), float(eager[3])]
+                flags = int((got[4] != eager[4]).sum())
+                row.update(chi2_captured=chi2[0], chi2_eager=chi2[1],
+                           chi2_rel=abs(chi2[0] - chi2[1]) / max(abs(chi2[1]), 1e-30),
+                           flags_differ=flags, observations=int(eager[4].numel()))
+                row["equal_bits"] = all(torch.equal(a, b) for a, b in zip(got, eager))
+                row["ok"] = (row["chi2_rel"] <= GRAPH_BA_CHI2_REL
+                             and flags <= GRAPH_BA_FLAG_SHARE * int(inputs[9].sum()))
+            else:
+                row["equal_bits"] = all(torch.equal(a, b) for a, b in zip(got, eager))
+            kept.append((len(rows), got, [x.clone() for x in got]))
+        row.setdefault("ok", row["equal_bits"])
+        row["ok"] = row["ok"] and row["replayed"]
+        rows.append(row)
+
+    for key, ps in dm.programs.items():
+        def run(variant, *inputs, ps=ps, key=key, orig=ps.run):
+            out = orig(variant, *inputs)
+            sig = (ps.program(inputs).name, variant)
+            if sig not in seen:
+                seen.add(sig)
+                hold(key, ps, variant, inputs, out)
+            return out
+        ps.run = run
+    try:
+        result = fn()
+    finally:
+        for ps in dm.programs.values():
+            del ps.run
+    for i, got, copy in kept:
+        rows[i]["kept"] = all(torch.equal(a, b) for a, b in zip(got, copy))
+        rows[i]["ok"] = rows[i]["ok"] and rows[i]["kept"]
+    return rows, result
+
+
 def timed_compile(torch, slam):
     """`Slam._compile_programs` part by part: seconds and the device memory
     each part leaves reserved (its graph pool and input buffers), the
-    allocator's cache emptied around each."""
-    parts = {"step": slam.tracker.fused.capture, "local_ba": slam.mapper.capture_programs,
+    allocator's cache emptied around each; and what each capture of the map
+    mirror's one pool adds to it, in capture order."""
+    parts = {"step": slam.tracker.fused.capture, "mapping": slam.mapper.capture_programs,
              "host_path": slam.tracker.capture_programs}
     if slam.loop_closer is not None:
         parts["loop_closing"] = slam.loop_closer.capture_programs
+    dm, by_stage = slam.mapper.dmap, {}
+
+    def measured(fn, key):
+        def capture(*a):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            r0 = torch.cuda.memory_reserved()
+            fn(*a)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            by_stage[key(*a)] = torch.cuda.memory_reserved() - r0
+        return capture
+
+    dm.capture = measured(dm.capture, lambda name, variant, *a: (
+        name if variant is None else f"{name}[{variant}]") + f"[{_mirror_rows(a)}]")
+    dm.capture_scatter = measured(dm.capture_scatter, lambda n: f"scatter[{n}]")
     out = {}
-    for name, fn in parts.items():
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        r0 = torch.cuda.memory_reserved()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        out[name] = {"capture_s": dt, "reserved_bytes": torch.cuda.memory_reserved() - r0}
+    try:
+        for name, fn in parts.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            r0 = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            out[name] = {"capture_s": dt, "reserved_bytes": torch.cuda.memory_reserved() - r0}
+    finally:
+        del dm.capture, dm.capture_scatter
+    log(f"[graphs] the map mirror's pool, bytes each capture adds (in capture order): "
+        f"{json.dumps(by_stage)}")
+    out["mapping"]["reserved_bytes_by_capture"] = by_stage
     progs = {k: sorted(p.name for s in sets.values() for p in s.programs.values())
              for k, sets in (("host_path", slam.tracker.programs),
                              ("loop_closing", slam.loop_closer.programs
                               if slam.loop_closer is not None else {}))}
     progs["host_path"] += [p.name for p in slam.tracker.extraction.all_programs]
+    progs["mapping"] = sorted(p.name for s in slam.mapper.dmap.programs.values()
+                              for p in s.programs.values())
     log(f"[graphs] _compile_programs by part: {json.dumps(out)}; programs {json.dumps(progs)}")
     return {"parts": out, "programs": progs}
+
+
+def _mirror_rows(args) -> int:
+    """The leading size of a mirror stage's first array argument (its rows)."""
+    return next(np.shape(a)[0] for a in args if np.ndim(a))
 
 
 def _low_texture_frame(image, window=GRAPH_FLAT_WINDOW):
@@ -1274,6 +1417,7 @@ def phase_graphs(torch, fast_cuda, FusedContext, SlamConfig, fx, smi):
     flags, ms) on a problem from the system fixture's map."""
     from torch.profiler import ProfilerActivity, profile
 
+    from orbslam_jpminipc_torch.map import device_map
     from orbslam_jpminipc_torch.map.device_map import local_ba_kernel
     from orbslam_jpminipc_torch.pipeline.system import Slam
 
@@ -1413,18 +1557,56 @@ def phase_graphs(torch, fast_cuda, FusedContext, SlamConfig, fx, smi):
     res["warmup_s"] = time.perf_counter() - t0
     sets = iter(torch.as_tensor(x).cuda() for x in sf["init_sets"])
     slam.tracker.sampler = lambda mask, n_hyp: next(sets)
-    for img, ts in zip(sf["images"][:GRAPH_BA_FRAMES], sf["timestamps"][:GRAPH_BA_FRAMES]):
-        slam.process(img, float(ts))
-    slam.finish()
+
+    def drive():
+        for img, ts in zip(sf["images"][:GRAPH_BA_FRAMES], sf["timestamps"][:GRAPH_BA_FRAMES]):
+            slam.process(img, float(ts))
+        slam.finish()
+
+    # -- the map mirror's stage programs against their eager runs ------------
+    dm = slam.mapper.dmap
+    mapping, _ = hold_mirror_programs(torch, dm, drive)
+    res["mapping_programs"] = mapping
+    res["mapping_variants"] = {p.name: [repr(v) for v in p.variants]
+                               for s in dm.programs.values() for p in s.programs.values()}
+    log(f"[graphs] {smi}: the map mirror's stage programs, each first call per shape held "
+        f"against its eager run on the run's inputs: {json.dumps(mapping)}; captured "
+        f"{json.dumps(res['mapping_variants'])}")
+    held = {r["program"].split("[")[0] for r in mapping}
+    if any(not r["ok"] for r in mapping) or held != set(
+            ("map_scatter", "map_tri", "map_fuse", "local_ba", "map_attrs", "map_slice")):
+        raise AssertionError(f"[graphs] mapping programs off their eager runs or not run: "
+                             f"{mapping}")
+    # what a bucket past 2048 costs when its first call captures it mid-run
+    cap = {}
+    for name, capture in (
+            ("map_attrs[4096]", lambda: dm.capture(
+                "attrs", None, np.full((4096, slam.map.max_obs), -1, np.int32),
+                np.zeros((4096, slam.map.max_obs), np.int32), np.zeros((4096, 3)),
+                np.zeros(4096, np.int32), slam.cfg.scale_factors)),
+            ("map_scatter[4096]", lambda: dm.capture_scatter(4096))):
+        torch.cuda.synchronize()
+        r0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        capture()
+        torch.cuda.synchronize()
+        cap[name] = {"capture_s": time.perf_counter() - t0,
+                     "reserved_bytes": torch.cuda.memory_reserved() - r0}
+    res["bucket_4096_capture"] = cap
+    log(f"[graphs] {smi}: a 4096-row bucket captured at its first call: {json.dumps(cap)}")
     m = slam.mapper
     kf = int(np.nonzero(slam.map.kf_valid)[0].max())
     prob, _, _, obs_src, (obs_feat, obs_src_kf) = m.build_local_ba_problem(kf)
     inv_sigma2 = slam.cfg.inv_sigma2.astype(np.float32)
 
-    def stage(iterations, R, t, pts, valid, program):
-        return local_ba_kernel(m.dmap, R, t, prob.kf_fixed, pts, prob.point_valid, prob.obs_kf,
-                               prob.obs_pt, obs_feat, obs_src_kf, valid, prob.K4, inv_sigma2,
-                               iterations=iterations, program=program)
+    def stage(iterations, R, t, pts, valid, captured):
+        args = (R, t, prob.kf_fixed, pts, prob.point_valid, prob.obs_kf, prob.obs_pt,
+                obs_feat, obs_src_kf, valid, prob.K4, inv_sigma2)
+        if captured:
+            return local_ba_kernel(m.dmap, *args, iterations=iterations)
+        inputs = [x.to("cuda") for x in device_map._INPUTS["local_ba"](*args)]
+        with torch.no_grad():
+            return m.dmap.programs["local_ba"].fn(iterations, *inputs)
 
     def timed_ms(fn, reps=5):
         out, ms = None, []
@@ -1442,9 +1624,9 @@ def phase_graphs(torch, fast_cuda, FusedContext, SlamConfig, fx, smi):
     valid = np.asarray(prob.obs_valid)
     start = (prob.kf_R, prob.kf_t, prob.points, valid)
     for iterations in (5, 10):
-        g, g_ms = timed_ms(lambda: stage(iterations, *start, m.ba_program))
-        e, e_ms = timed_ms(lambda: stage(iterations, *start, None))
-        e2 = stage(iterations, *start, None)
+        g, g_ms = timed_ms(lambda: stage(iterations, *start, True))
+        e, e_ms = timed_ms(lambda: stage(iterations, *start, False))
+        e2 = stage(iterations, *start, False)
         chi2 = [float(x.chi2) for x in (g, e, e2)]
         flags = [x.obs_outlier.cpu().numpy() for x in (g, e, e2)]
         row = {"captured_ms": g_ms, "eager_ms": e_ms,
@@ -1801,7 +1983,14 @@ def stage_profile(torch, slam, smi):
     rows = {k: {"calls": v["calls"], **{f: v[f] / v["calls"] for f in v if f != "calls"}}
             for k, v in by.items()}
     for k, v in rows.items():
+        if k in EAGER_STAGES:
+            v["eager_host_launches"], v["eager_host_ms"] = EAGER_STAGES[k]
         log(f"[system] {smi}: mapping stage {k} per call, profiled alone: {json.dumps(v)}")
+    many = {k: rows[k]["host_launches"] for k in ("triangulate_d", "fuse_d", "ba_d", "ba2_d")
+            if k in rows and rows[k]["host_launches"] > STAGE_LAUNCHES_MAX}
+    if many:
+        raise AssertionError(f"[system] mapping stages launching more than "
+                             f"{STAGE_LAUNCHES_MAX} times from the host a call: {many}")
     return rows
 
 
@@ -2823,6 +3012,13 @@ def _wait_sites(torch, slam, fn):
                 elif inside:
                     site += f" via {os.path.relpath(f.filename, REPO)}:{f.lineno}"
                     break
+        if filename.endswith(os.path.join("map", "map_state.py")):
+            # an attrs read taken before it landed: who forced it
+            port = [f for f in traceback.extract_stack()[:-2]
+                    if "orbslam_jpminipc_torch" in f.filename
+                    and not f.filename.endswith(os.path.join("map", "map_state.py"))]
+            site += " via " + " < ".join(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                                         for f in reversed(port[-3:]))
         sites[site] = sites.get(site, 0) + 1
 
     def labelled(label):

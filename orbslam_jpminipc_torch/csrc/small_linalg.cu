@@ -14,27 +14,46 @@
 // Its plain PyTorch version, step for step, is
 // orbslam_jpminipc_torch/solvers/small_linalg.py (eigh_small, svd_small);
 // read its docstring for the algorithm and the conventions. The two agree
-// to rounding (the kernel contracts multiply-adds), not to the bit.
+// to rounding (the kernel contracts multiply-adds, and sums a column's dot
+// products in its own order), not to the bit.
 //
-// What bounds it on this card: operations, and in practice latency. A
-// 12x12 matrix is 576 bytes in and 624 out; a sweep is 11 rounds of 6
-// rotations, each touching 4 rows and columns: ~3,500 flops a sweep, some
-// 30 k for a matrix's ~8 sweeps. 257 of them are 0.3 MB and 8 M flops:
-// 0.1 us at 3.35 TB/s, 0.12 us at 67 TFLOP/s. Neither is near: each
-// rotation depends on the last round's, so a matrix is a chain of ~90
-// dependent rounds of a few hundred cycles each, and one warp per matrix
-// leaves the card mostly idle at these batches (257 warps on 132 SMs).
+// What bounds it on this card: latency. A 12x12 matrix is 576 bytes in and
+// 624 out; a sweep is 11 rounds of 6 rotations, ~3,500 flops, some 30 k for
+// a matrix's ~8 sweeps. 257 of them are 0.3 MB and 8 M flops: 0.1 us at
+// 3.35 TB/s, 0.12 us at 67 TFLOP/s. Neither is near: each round depends on
+// the last one, so a matrix is a chain of ~90 dependent rounds, and the
+// main path's batches (4 to 1,024 matrices) are too few to hide that chain
+// behind other warps. So the design shortens the chain itself:
 //
-// What the design does about it: nothing beyond being simple and right, as
-// a port's first kernel. One warp per matrix, 4 warps a block; the matrix
-// and its accumulated rotations in shared memory (12x12 and its V in one
-// thread's registers would spill); in each round lanes 0..m/2-1 compute the
-// m/2 disjoint rotations, then the warp applies them to columns (A and V)
-// and to rows (A), each lane a few (row, pair) tasks, with __syncwarp
-// between the steps. A matrix leaves its loop after a sweep with no
-// rotation (the vote is __any_sync), so the launch takes as long as its
-// slowest matrix. Sorting and the sign convention are lane-parallel over
-// the columns; the stable sort is one lane's insertion sort.
+// * One lane per column of A (and of V, or of U and V for the SVD), in that
+//   lane's registers: a matrix takes a group of G lanes (G = 4 for a padded
+//   size m <= 4, 8 for m <= 8, 16 for m <= 12), so 8 matrices of 3x3 or 4x4
+//   share a warp, 2 of 9x9 to 12x12.
+// * The rounds are unrolled by a template on the padded size m (the kernel
+//   is instantiated for m = 2, 4, ..., 12), so every row index in a round
+//   is a compile-time constant and the columns never leave the registers
+//   (ptxas -v: no spill; 32 to 72 registers; a stack frame only where the
+//   LAPACK-sign path of m = 4 keeps its 3x3 arrays, 64 bytes, and in the
+//   svd of m = 2, 32 bytes).
+// * Both lanes of a pair compute the pair's (c, s) from a_pp, a_qq and a_pq
+//   (each lane's diagonal entry and its entry in its partner's row,
+//   exchanged with __shfl_sync), so nothing is broadcast before the column
+//   rotation, which is one shuffle a row with the partner lane and one
+//   multiply-add (c x -+ s y). Each lane's m/2 row rotations are
+//   lane-local, with every pair's (c, s) broadcast by shuffle from the
+//   pair's first lane. No shared memory, no branch and no __syncwarp
+//   inside a round.
+// * The stop vote is warp-wide (__any_sync once a sweep): a matrix that has
+//   converged rotates nothing in further sweeps (its pairs apply the
+//   identity, c = 1 and s = 0, which leaves every value as it is), so its
+//   result is the one it would have stopped with.
+// * Sorting is a rank per lane (each lane counts the columns that precede
+//   its own), so a lane writes its column straight to its output position.
+//
+// Hopper's wgmma tensor cores and TMA do not fit this: a rotation is a 2x2
+// update of two columns that depends on the previous round, there is no
+// tile of 64 rows to multiply, and a matrix is a few hundred bytes (float32
+// Jacobi also needs float32 arithmetic, not TF32).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -42,7 +61,8 @@ namespace {
 
 constexpr int kMaxN = 12;                 // eigh; the padded size is kMaxN too
 constexpr int kMaxSvdN = 4;
-constexpr int kWarps = 4;                 // matrices per block
+constexpr int kThreads = 128;             // 4 warps a block
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1.1920929e-07f;
 constexpr float kEighTol = kEps;          // solvers/small_linalg.py:EIGH_TOL
 constexpr float kSvdTol = 4.0f * kEps;    // SVD_TOL
@@ -53,19 +73,46 @@ constexpr float kLapackRtmin = 1.0842022e-19f;    // LAPACK_RTMIN, 2^-63
 constexpr float kLapackRtmax = 6.5219088e+18f;    // LAPACK_RTMAX, 2^62.5
 constexpr int kLapackSteps = 16;                  // LAPACK_STEPS
 
+// lanes a matrix takes at padded size m: a power of two at least m
+__host__ __device__ constexpr int group_lanes(int m) { return m <= 4 ? 4 : m <= 8 ? 8 : 16; }
+
 // the round-robin (circle method) order of solvers/small_linalg.py:rounds:
-// pair k of round r for an even size m, as p < q
-__device__ __forceinline__ void pair(int m, int r, int k, int& p, int& q) {
-  int a, b;
-  if (k == 0) {
-    a = r;
-    b = m - 1;
-  } else {
-    a = (r + k) % (m - 1);
-    b = (r - k + (m - 1)) % (m - 1);
-  }
-  p = min(a, b);
-  q = max(a, b);
+// the first index p of pair k of round r for an even size m (p < q)
+__host__ __device__ constexpr int pair_p(int m, int r, int k) {
+  return k == 0 ? r
+                : ((r + k) % (m - 1) < (r - k + (m - 1)) % (m - 1) ? (r + k) % (m - 1)
+                                                                   : (r - k + (m - 1)) % (m - 1));
+}
+
+__host__ __device__ constexpr int pair_q(int m, int r, int k) {
+  return k == 0 ? m - 1
+                : ((r + k) % (m - 1) > (r - k + (m - 1)) % (m - 1) ? (r + k) % (m - 1)
+                                                                   : (r - k + (m - 1)) % (m - 1));
+}
+
+// lane j's partner in round r: m - 1 pairs with r, and j with (2r - j)
+// mod (m - 1) (pair k joins (r + k) and (r - k)); lanes past m keep to
+// themselves
+__device__ __forceinline__ int partner_of(int m, int r, int j) {
+  if (j >= m) return j;
+  if (j == m - 1) return r;
+  if (j == r) return m - 1;
+  return (2 * r - j + (m - 1)) % (m - 1);
+}
+
+// x[i] for a runtime i, the array in registers: a select over constant indices
+template <int M>
+__device__ __forceinline__ float pick(const float (&x)[M], int i) {
+  float out = 0.0f;
+#pragma unroll
+  for (int k = 0; k < M; ++k) out = k == i ? x[k] : out;
+  return out;
+}
+
+template <int M>
+__device__ __forceinline__ void put(float (&x)[M], int i, float value) {
+#pragma unroll
+  for (int k = 0; k < M; ++k) x[k] = k == i ? value : x[k];
 }
 
 // solvers/small_linalg.py:_rotation, where the pair rotates
@@ -78,30 +125,13 @@ __device__ __forceinline__ void rotation(float d, float g, float& c, float& s, f
   s = t * c;
 }
 
-// the index (first of equals) of the largest |x[i * stride]|, i < n
-__device__ __forceinline__ int argmax_abs(const float* x, int n, int stride) {
-  int best = 0;
-  float v = fabsf(x[0]);
-  for (int i = 1; i < n; ++i) {
-    float a = fabsf(x[i * stride]);
-    if (a > v) {
-      v = a;
-      best = i;
-    }
-  }
-  return best;
-}
-
-// a stable ascending order of key[0..n) into order[]
-__device__ __forceinline__ void stable_order(const float* key, int n, int* order) {
-  for (int i = 0; i < n; ++i) {
-    int j = i;
-    while (j > 0 && key[order[j - 1]] > key[i]) {
-      order[j] = order[j - 1];
-      --j;
-    }
-    order[j] = i;
-  }
+// true in every lane of the G-lane group when it is in any
+template <int G>
+__device__ __forceinline__ bool group_any(bool x) {
+  int v = x ? 1 : 0;
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) v |= __shfl_xor_sync(kFull, v, off, G);
+  return v != 0;
 }
 
 // ---- LAPACK's eigenvector signs for 3x3 (solvers/small_linalg.py:
@@ -336,236 +366,248 @@ __device__ void lapack_vectors3(const float* S, float* Z) {
   }
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
+
+// ---- eigh: one lane a column of A and of V --------------------------------
+
+template <int M>
+__global__ void __launch_bounds__(kThreads)
 eigh_kernel(const float* __restrict__ A, float* __restrict__ w, float* __restrict__ V,
             int batch, int n, int max_sweeps, int lapack) {
-  __shared__ float s_a[kWarps][kMaxN * kMaxN];
-  __shared__ float s_v[kWarps][kMaxN * kMaxN];
-  __shared__ float s_c[kWarps][kMaxN / 2], s_s[kWarps][kMaxN / 2];
-  __shared__ float s_key[kWarps][kMaxN];
-  __shared__ int s_order[kWarps][kMaxN];
-  __shared__ float s_z[kWarps][9];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long b = static_cast<long>(blockIdx.x) * kWarps + warp;
-  if (b >= batch) return;  // the whole warp: no __syncwarp below misses a lane
-  float* a = s_a[warp];
-  float* v = s_v[warp];
-  float* cs = s_c[warp];
-  float* ss = s_s[warp];
-  const int m = n + (n & 1), half = m / 2;
-  const float* Ab = A + b * n * n;
+  constexpr int G = group_lanes(M);
+  const int lane = threadIdx.x & 31, j = lane % G;
+  const long b = (static_cast<long>(blockIdx.x) * kThreads + threadIdx.x) / G;
+  const bool live = b < batch;  // a lane past the batch still takes part in the shuffles
+  const float* Ab = A + (live ? b : 0) * n * n;
 
+  float a[M], v[M];
   bool bad = false;
-  for (int e = lane; e < m * m; e += 32) {
-    int i = e / m, j = e % m;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
     float x = 0.0f;
-    if (i < n && j < n) {
+    if (live && i < n && j < n) {
       float aij = Ab[i * n + j], aji = Ab[j * n + i];
       bad |= !isfinite(aij);
       x = 0.5f * (aij + aji);
     }
-    a[e] = x;
-    v[e] = i == j ? 1.0f : 0.0f;
+    a[i] = x;
+    v[i] = i == j ? 1.0f : 0.0f;
   }
-  bad = __any_sync(0xffffffffu, bad);
-  __syncwarp();
+  bad = group_any<G>(bad);
+  if (bad) {  // as the plain version: a zero matrix, NaN on the way out
+#pragma unroll
+    for (int i = 0; i < M; ++i) a[i] = 0.0f;
+  }
 
-  if (!bad) {
-    for (int sweep = 0; sweep < max_sweeps; ++sweep) {
-      bool rotated = false;
-      for (int r = 0; r < m - 1; ++r) {
-        int p = 0, q = 0;
-        float app = 0.0f, aqq = 0.0f, apq = 0.0f, t = 0.0f;
-        bool rot = false;
-        if (lane < half) {
-          pair(m, r, lane, p, q);
-          app = a[p * m + p];
-          aqq = a[q * m + q];
-          apq = a[p * m + q];
-          rot = fabsf(apq) > kEighTol * sqrtf(fabsf(app)) * sqrtf(fabsf(aqq));
-          float c = 1.0f, s = 0.0f;
-          if (rot) rotation(aqq - app, apq, c, s, t);
-          cs[lane] = c;
-          ss[lane] = s;
-          rotated |= rot;
-        }
-        __syncwarp();
-        // columns of A and V: task (row i, pair k)
-        for (int e = lane; e < m * half; e += 32) {
-          int i = e / half, k = e % half, pp, qq;
-          pair(m, r, k, pp, qq);
-          float c = cs[k], s = ss[k];
-          float xp = a[i * m + pp], xq = a[i * m + qq];
-          a[i * m + pp] = c * xp - s * xq;
-          a[i * m + qq] = s * xp + c * xq;
-          xp = v[i * m + pp];
-          xq = v[i * m + qq];
-          v[i * m + pp] = c * xp - s * xq;
-          v[i * m + qq] = s * xp + c * xq;
-        }
-        __syncwarp();
-        // rows of A: task (pair k, column j)
-        for (int e = lane; e < half * m; e += 32) {
-          int k = e / m, j = e % m, pp, qq;
-          pair(m, r, k, pp, qq);
-          float c = cs[k], s = ss[k];
-          float xp = a[pp * m + j], xq = a[qq * m + j];
-          a[pp * m + j] = c * xp - s * xq;
-          a[qq * m + j] = s * xp + c * xq;
-        }
-        __syncwarp();
-        // the rotated 2x2 blocks, exactly
-        if (rot) {
-          a[p * m + p] = app - t * apq;
-          a[q * m + q] = aqq + t * apq;
-          a[p * m + q] = 0.0f;
-          a[q * m + p] = 0.0f;
-        }
-        __syncwarp();
+  for (int sweep = 0; sweep < max_sweeps; ++sweep) {
+    bool rotated = false;
+#pragma unroll
+    for (int r = 0; r < M - 1; ++r) {
+      const int partner = partner_of(M, r, j);
+      const bool first = j < partner;  // this lane holds column p of its pair
+      // a_pp, a_qq and a_pq (row p of column q), the same in both lanes
+      const float diag = pick(a, j), off = pick(a, partner);
+      const float pdiag = __shfl_sync(kFull, diag, partner, G);
+      const float poff = __shfl_sync(kFull, off, partner, G);
+      const float app = first ? diag : pdiag, aqq = first ? pdiag : diag;
+      const float apq = first ? poff : off;
+      const bool rot = partner != j &&
+                       fabsf(apq) > kEighTol * sqrtf(fabsf(app)) * sqrtf(fabsf(aqq));
+      float c = 1.0f, s = 0.0f, t = 0.0f;
+      if (rot) rotation(aqq - app, apq, c, s, t);
+      rotated |= rot;
+      // columns of A and V: p <- c x_p - s x_q, q <- s x_p + c x_q, as
+      // c x + (-+s) y in both lanes; a pair that does not rotate applies
+      // the identity (c = 1, s = 0), as the plain version does
+      const float sy = first ? -s : s;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        const float y = __shfl_sync(kFull, a[i], partner, G);
+        const float z = __shfl_sync(kFull, v[i], partner, G);
+        a[i] = c * a[i] + sy * y;
+        v[i] = c * v[i] + sy * z;
       }
-      if (!__any_sync(0xffffffffu, rotated)) break;
+      // rows of A, every pair's, in each lane's own column
+#pragma unroll
+      for (int k = 0; k < M / 2; ++k) {
+        const int p = pair_p(M, r, k), q = pair_q(M, r, k);
+        const float ck = __shfl_sync(kFull, c, p, G);
+        const float sk = __shfl_sync(kFull, s, p, G);
+        const float xp = a[p], xq = a[q];
+        a[p] = ck * xp - sk * xq;
+        a[q] = sk * xp + ck * xq;
+      }
+      // the rotated 2x2 block, exactly
+      if (rot) {
+        put(a, j, first ? app - t * apq : aqq + t * apq);
+        put(a, partner, 0.0f);
+      }
     }
+    if (!__any_sync(kFull, rotated)) break;
   }
 
-  // ascending, stable; then each column's sign
-  float* key = s_key[warp];
-  int* order = s_order[warp];
-  if (lane < n) key[lane] = a[lane * m + lane];
-  __syncwarp();
-  if (lane == 0) {
-    stable_order(key, n, order);
-    if (lapack) {  // n == 3 (the wrapper checks): LAPACK's signs
-      float S[9];
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) S[i * 3 + j] = 0.5f * (Ab[i * 3 + j] + Ab[j * 3 + i]);
-      lapack_vectors3(S, s_z[warp]);
+  // ascending and stable: the columns before this one
+  const float d = pick(a, j);
+  int rank = 0;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const float di = __shfl_sync(kFull, d, i, G);
+    rank += i < n && (di < d || (di == d && i < j));
+  }
+  // the largest-magnitude component (the first of equals) positive
+  float big = fabsf(v[0]), at = v[0];
+#pragma unroll
+  for (int i = 1; i < M; ++i) {
+    if (i < n && fabsf(v[i]) > big) {
+      big = fabsf(v[i]);
+      at = v[i];
     }
   }
-  __syncwarp();
-  float* wb = w + b * n;
-  float* Vb = V + b * n * n;
-  const float nan = __int_as_float(0x7fffffff);
-  if (lane < n) {
-    int col = order[lane];
-    wb[lane] = bad ? nan : key[col];
-    float sgn;
-    if (lapack) {
+  float sgn = at < 0.0f ? -1.0f : 1.0f;
+  if constexpr (M == 4) {
+    if (lapack) {  // n == 3 (the wrapper checks): LAPACK's signs instead
+      float S[9], Z[9];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          S[i * 3 + k] = live ? 0.5f * (Ab[i * 3 + k] + Ab[k * 3 + i]) : 0.0f;
+      lapack_vectors3(S, Z);
       float dot = 0.0f;
-      for (int i = 0; i < 3; ++i) dot += s_z[warp][i * 3 + lane] * v[i * m + col];
+#pragma unroll
+      for (int col = 0; col < 3; ++col) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) acc += Z[i * 3 + col] * v[i];
+        dot = col == rank ? acc : dot;
+      }
       sgn = dot < 0.0f ? -1.0f : 1.0f;
-    } else {
-      sgn = v[argmax_abs(v + col, n, m) * m + col] < 0.0f ? -1.0f : 1.0f;
     }
-    for (int i = 0; i < n; ++i) Vb[i * n + lane] = bad ? nan : sgn * v[i * m + col];
+  }
+  if (live && j < n) {
+    const float nan = __int_as_float(0x7fffffff);
+    w[b * n + rank] = bad ? nan : d;
+    float* Vb = V + b * n * n;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      if (i < n) Vb[i * n + rank] = bad ? nan : sgn * v[i];
+    }
   }
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
+// ---- svd: one-sided Jacobi, one lane a column of U and of V ------------------
+
+template <int M>
+__global__ void __launch_bounds__(kThreads)
 svd_kernel(const float* __restrict__ A, float* __restrict__ U, float* __restrict__ S,
            float* __restrict__ Vt, int batch, int n, int max_sweeps) {
-  constexpr int kM = kMaxSvdN;  // padded column count
-  __shared__ float s_u[kWarps][kMaxSvdN * kM];
-  __shared__ float s_v[kWarps][kM * kM];
-  __shared__ float s_c[kWarps][kM / 2], s_s[kWarps][kM / 2];
-  __shared__ float s_key[kWarps][kM];
-  __shared__ float s_sig[kWarps][kM];
-  __shared__ int s_order[kWarps][kM];
-  __shared__ float s_out[kWarps][kMaxSvdN * kMaxSvdN];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long b = static_cast<long>(blockIdx.x) * kWarps + warp;
-  if (b >= batch) return;
-  float* u = s_u[warp];  // n rows x m columns, row-major
-  float* v = s_v[warp];  // m x m
-  float* cs = s_c[warp];
-  float* ss = s_s[warp];
-  const int m = n + (n & 1), half = m / 2;
-  const float* Ab = A + b * n * n;
+  constexpr int G = group_lanes(M);
+  constexpr int kGroups = kThreads / G;
+  __shared__ float s_u[kGroups][kMaxSvdN * kMaxSvdN];  // U, n x n row-major, sorted
+  __shared__ float s_sig[kGroups][kMaxSvdN];
+  const int lane = threadIdx.x & 31, j = lane % G, g = threadIdx.x / G;
+  const long b = (static_cast<long>(blockIdx.x) * kThreads + threadIdx.x) / G;
+  const bool live = b < batch;
+  const float* Ab = A + (live ? b : 0) * n * n;
 
+  float u[M], v[M];  // rows past n of u stay zero
   bool bad = false;
-  for (int e = lane; e < m * m; e += 32) {
-    int i = e / m, j = e % m;
-    if (i < n) {
-      float x = j < n ? Ab[i * n + j] : 0.0f;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    float x = 0.0f;
+    if (live && i < n && j < n) {
+      x = Ab[i * n + j];
       bad |= !isfinite(x);
-      u[i * m + j] = x;
     }
-    v[e] = i == j ? 1.0f : 0.0f;
+    u[i] = x;
+    v[i] = i == j ? 1.0f : 0.0f;
   }
-  bad = __any_sync(0xffffffffu, bad);
-  __syncwarp();
+  bad = group_any<G>(bad);
+  if (bad) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) u[i] = 0.0f;
+  }
 
-  if (!bad) {
-    for (int sweep = 0; sweep < max_sweeps; ++sweep) {
-      bool rotated = false;
-      for (int r = 0; r < m - 1; ++r) {
-        if (lane < half) {
-          int p, q;
-          pair(m, r, lane, p, q);
-          float alpha = 0.0f, beta = 0.0f, gamma = 0.0f;
-          for (int i = 0; i < n; ++i) {
-            float xp = u[i * m + p], xq = u[i * m + q];
-            alpha += xp * xp;
-            beta += xq * xq;
-            gamma += xp * xq;
-          }
-          bool rot = fabsf(gamma) > kSvdTol * sqrtf(alpha) * sqrtf(beta);
-          float c = 1.0f, s = 0.0f, t;
-          if (rot) rotation(beta - alpha, gamma, c, s, t);
-          cs[lane] = c;
-          ss[lane] = s;
-          rotated |= rot;
-        }
-        __syncwarp();
-        // columns of U (n rows) and V (m rows): task (row i, pair k)
-        for (int e = lane; e < m * half; e += 32) {
-          int i = e / half, k = e % half, p, q;
-          pair(m, r, k, p, q);
-          float c = cs[k], s = ss[k];
-          if (i < n) {
-            float xp = u[i * m + p], xq = u[i * m + q];
-            u[i * m + p] = c * xp - s * xq;
-            u[i * m + q] = s * xp + c * xq;
-          }
-          float xp = v[i * m + p], xq = v[i * m + q];
-          v[i * m + p] = c * xp - s * xq;
-          v[i * m + q] = s * xp + c * xq;
-        }
-        __syncwarp();
+  for (int sweep = 0; sweep < max_sweeps; ++sweep) {
+    bool rotated = false;
+#pragma unroll
+    for (int r = 0; r < M - 1; ++r) {
+      const int partner = partner_of(M, r, j);
+      const bool first = j < partner;
+      float y[M], z[M];
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        y[i] = __shfl_sync(kFull, u[i], partner, G);
+        z[i] = __shfl_sync(kFull, v[i], partner, G);
       }
-      if (!__any_sync(0xffffffffu, rotated)) break;
+      // |u_j|^2 in each lane, exchanged; u_p . u_q in both (the same sum)
+      float own = 0.0f, gamma = 0.0f;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        if (i < n) {
+          own += u[i] * u[i];
+          gamma += u[i] * y[i];
+        }
+      }
+      const float other = __shfl_sync(kFull, own, partner, G);
+      const float alpha = first ? own : other, beta = first ? other : own;
+      const bool rot = partner != j && fabsf(gamma) > kSvdTol * sqrtf(alpha) * sqrtf(beta);
+      rotated |= rot;
+      float c = 1.0f, s = 0.0f, t;  // (t: the eigh's exact 2x2 update)
+      if (rot) rotation(beta - alpha, gamma, c, s, t);
+      const float sy = first ? -s : s;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        u[i] = c * u[i] + sy * y[i];
+        v[i] = c * v[i] + sy * z[i];
+      }
     }
+    if (!__any_sync(kFull, rotated)) break;
   }
 
   // singular values descending (stable), V's sign convention, U's columns
-  float* key = s_key[warp];
-  float* sig = s_sig[warp];
-  int* order = s_order[warp];
-  float* out = s_out[warp];  // U, n x n row-major
-  if (lane < n) {
-    float acc = 0.0f;
-    for (int i = 0; i < n; ++i) acc += u[i * m + lane] * u[i * m + lane];
-    sig[lane] = sqrtf(acc);
-    key[lane] = -sig[lane];
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    if (i < n) acc += u[i] * u[i];
   }
-  __syncwarp();
-  if (lane == 0) stable_order(key, n, order);
-  __syncwarp();
-  if (lane < n) {
-    int col = order[lane];
-    float sv = sig[col];
-    float sgn = v[argmax_abs(v + col, n, m) * m + col] < 0.0f ? -1.0f : 1.0f;
-    for (int i = 0; i < n; ++i) {
-      out[i * n + lane] = sv > 0.0f ? sgn * u[i * m + col] / sv : 0.0f;
-      Vt[b * n * n + lane * n + i] = bad ? __int_as_float(0x7fffffff) : sgn * v[i * m + col];
+  const float sv = sqrtf(acc);
+  int rank = 0;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const float si = __shfl_sync(kFull, sv, i, G);
+    rank += i < n && (si > sv || (si == sv && i < j));
+  }
+  float big = fabsf(v[0]), at = v[0];
+#pragma unroll
+  for (int i = 1; i < M; ++i) {
+    if (i < n && fabsf(v[i]) > big) {
+      big = fabsf(v[i]);
+      at = v[i];
     }
-    S[b * n + lane] = bad ? __int_as_float(0x7fffffff) : sv;
+  }
+  const float sgn = at < 0.0f ? -1.0f : 1.0f;
+  float* out = s_u[g];
+  const float nan = __int_as_float(0x7fffffff);
+  if (j < n) {
+    s_sig[g][rank] = sv;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      if (i < n) out[i * n + rank] = sv > 0.0f ? sgn * u[i] / sv : 0.0f;
+    }
+    if (live) {
+      S[b * n + rank] = bad ? nan : sv;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        if (i < n) Vt[b * n * n + rank * n + i] = bad ? nan : sgn * v[i];
+      }
+    }
   }
   __syncwarp();
   // a zero singular value's column: the unit vector with the largest
   // residual against the columns so far (solvers/small_linalg.py:_complete)
-  if (lane == 0) {
-    for (int j = 0; j < n; ++j) {
-      if (sig[order[j]] > 0.0f) continue;
+  if (j == 0) {
+    for (int c = 0; c < n; ++c) {
+      if (s_sig[g][c] > 0.0f) continue;
       float best = -1.0f, col[kMaxSvdN] = {0.0f, 0.0f, 0.0f, 0.0f};
       for (int k = 0; k < n; ++k) {
         float res[kMaxSvdN], norm2 = 0.0f;
@@ -581,16 +623,32 @@ svd_kernel(const float* __restrict__ A, float* __restrict__ U, float* __restrict
           for (int i = 0; i < n; ++i) col[i] = res[i];
         }
       }
-      for (int i = 0; i < n; ++i) out[i * n + j] = col[i] / best;
+      for (int i = 0; i < n; ++i) out[i * n + c] = col[i] / best;
     }
   }
   __syncwarp();
-  for (int e = lane; e < n * n; e += 32) {
-    U[b * n * n + e] = bad ? __int_as_float(0x7fffffff) : out[e];
+  if (live) {
+    for (int e = j; e < n * n; e += G) U[b * n * n + e] = bad ? nan : out[e];
   }
 }
 
-int blocks_for(int batch) { return (batch + kWarps - 1) / kWarps; }
+template <int M>
+int eigh_launch(const float* A, float* w, float* V, int batch, int n, int max_sweeps,
+                int lapack, cudaStream_t stream) {
+  const int per_block = kThreads / group_lanes(M);
+  eigh_kernel<M><<<(batch + per_block - 1) / per_block, kThreads, 0, stream>>>(
+      A, w, V, batch, n, max_sweeps, lapack);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int M>
+int svd_launch(const float* A, float* U, float* S, float* Vt, int batch, int n, int max_sweeps,
+               cudaStream_t stream) {
+  const int per_block = kThreads / group_lanes(M);
+  svd_kernel<M><<<(batch + per_block - 1) / per_block, kThreads, 0, stream>>>(
+      A, U, S, Vt, batch, n, max_sweeps);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -601,9 +659,15 @@ extern "C" int sl_eigh_launch(const float* A, float* w, float* V, int batch, int
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  eigh_kernel<<<blocks_for(batch), 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, w, V, batch, n, max_sweeps, lapack_signs);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n + (n & 1)) {
+    case 2: return eigh_launch<2>(A, w, V, batch, n, max_sweeps, lapack_signs, s);
+    case 4: return eigh_launch<4>(A, w, V, batch, n, max_sweeps, lapack_signs, s);
+    case 6: return eigh_launch<6>(A, w, V, batch, n, max_sweeps, lapack_signs, s);
+    case 8: return eigh_launch<8>(A, w, V, batch, n, max_sweeps, lapack_signs, s);
+    case 10: return eigh_launch<10>(A, w, V, batch, n, max_sweeps, lapack_signs, s);
+    default: return eigh_launch<12>(A, w, V, batch, n, max_sweeps, lapack_signs, s);
+  }
 }
 
 extern "C" int sl_svd_launch(const float* A, float* U, float* S, float* Vt, int batch, int n,
@@ -613,9 +677,9 @@ extern "C" int sl_svd_launch(const float* A, float* U, float* S, float* Vt, int 
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  svd_kernel<<<blocks_for(batch), 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, U, S, Vt, batch, n, max_sweeps);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 2) return svd_launch<2>(A, U, S, Vt, batch, n, max_sweeps, s);
+  return svd_launch<4>(A, U, S, Vt, batch, n, max_sweeps, s);
 }
 
 extern "C" int sl_max_n() { return kMaxN; }

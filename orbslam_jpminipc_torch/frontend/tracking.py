@@ -355,7 +355,8 @@ class Tracker:
         at (last frame, frame) in {n1, n2}^2; local-map tracking at frame n1
         and n2 against the slice's M rows; the relocalization candidate and
         both ladder rungs at frame n1 and n2 against keyframe rows; the
-        initialization attempt at n2 (the initializing frames' extraction).
+        initialization attempt at n2 (the initializing frames' extraction);
+        the slice refresh (the map mirror's `slice` program) at M rows.
         Dummy inputs of the real calls' dtypes; on the CPU nothing is
         captured (the sets still note the shapes)."""
         cfg, dev = self.cfg, self.device
@@ -390,6 +391,10 @@ class Tracker:
             None, z(INIT_HYP, n2), z(n2, 32, dt=u8), z(n2, 2), z(n2), z(n2, dt=b),
             z(n2, dt=i32), z(n2, 32, dt=u8), z(n2, 2), z(n2), z(n2, dt=i32), z(n2, dt=b),
             self.K4)
+        # the slice refresh, the map mirror's program at the slice's rows
+        if self.dmap is not None and self.fused is not None:
+            self.dmap.capture("slice", None, np.zeros(M, np.int64), np.zeros(M, bool),
+                              np.zeros(M, np.float32))
 
     # ------------------------------------------------------------------
     # main entry

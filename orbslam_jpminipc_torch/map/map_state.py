@@ -361,24 +361,20 @@ class MapState:
         apply_point_attributes (the device works while the host goes on).
         The observation operands are gathered on the DeviceMap's device
         (the upload is index lists)."""
-        from .device_map import attrs_kernel
+        from .device_map import attrs_kernel, size_bucket
 
         if len(ids) == 0:
             return None
         n_real = len(ids)
-        # the reference pads to coarse size buckets (one XLA program each);
-        # the pad rows repeat ids[0] and their outputs are dropped, so the
-        # same padding keeps the batch's arithmetic identical
-        cap = (256 if n_real <= 256
-               else 2048 if n_real <= 2048
-               else 1 << int(np.ceil(np.log2(n_real))))
-        ids = np.concatenate([ids, np.full(cap - n_real, ids[0], ids.dtype)])
+        # the reference pads to coarse size buckets (one XLA program each,
+        # one captured program each here); the pad rows repeat ids[0] and
+        # their outputs are dropped, so the same padding keeps the batch's
+        # arithmetic identical
+        ids = np.concatenate([ids, np.full(size_bucket(n_real) - n_real, ids[0], ids.dtype)])
         obs_kf = self.mp_obs_kf[ids]
         obs_feat = np.clip(self.mp_obs_feat[ids], 0, self.n_feat - 1)
         ref_slot = np.argmax(obs_kf == self.mp_ref_kf[ids][:, None], axis=1)
-        sf = np.asarray(scale_factors, np.float32)
-        outs = attrs_kernel(dmap, obs_kf, obs_feat, self.mp_xyz[ids].astype(np.float32),
-                            ref_slot, sf)
+        outs = attrs_kernel(dmap, obs_kf, obs_feat, self.mp_xyz[ids], ref_slot, scale_factors)
         # the read is queued now: whoever applies it may ask `done()` first
         return ids[:n_real], self.mp_gen[ids[:n_real]].copy(), fetch_async(*outs)
 

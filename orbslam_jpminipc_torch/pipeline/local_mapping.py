@@ -19,13 +19,11 @@ whether a host half can run without waiting for the device.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..config import SlamConfig
 from ..frontend.frame import Frame
 from ..map import culling
-from ..map.device_map import (DeviceMap, fuse_kernel, local_ba_kernel, local_ba_program,
-                               tri_kernel)
+from ..map.device_map import DeviceMap, fuse_kernel, local_ba_kernel, tri_kernel
 from ..map.map_state import MapState
 from ..solvers import ba
 from ..utils.host import fetch_async
@@ -57,26 +55,34 @@ class LocalMapper:
         self._ba2_pending = None
         self._attrs_pending: list[int] = []
         self._attrs_inflight = None  # launched attrs awaiting writeback
-        # local BA's two LM stages (5 and 10 iterations), captured programs
-        # at the fixed capacities of build_local_ba_problem
-        self.ba_program = local_ba_program(self.dmap.device)
 
     def capture_programs(self):
-        """Capture both local-BA stages ahead of the first keyframe, on a
-        problem of the fixed capacities with nothing to solve (on the CPU
-        nothing is captured)."""
-        cfg = self.cfg
+        """Capture the mirror's stage programs ahead of the first keyframe at
+        the shapes the stages call them with (the reference jits each at its
+        first host spec; its warmup drives them): triangulation against
+        TRI_NEIGHBORS keyframes, fusion over 2 FUSE_TARGETS rows, both
+        local-BA stages (5 and 10 iterations) at the problem's fixed
+        capacities, the attrs pass and the point scatter at their first two
+        row buckets (256 and 2048; a larger bucket is captured at its first
+        call). Dummy inputs of the real calls' dtypes; on the CPU nothing is
+        captured."""
+        cfg, dm = self.cfg, self.dmap
+        F, B, T = self.map.n_feat, TRI_NEIGHBORS, FUSE_TARGETS
         K, P, O = cfg.local_ba_kf + cfg.local_ba_fixed, cfg.local_ba_points, cfg.local_ba_obs
-        dev = self.dmap.device
-        z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=dev)
-        prob = ba.BAProblem(
-            kf_R=torch.eye(3, device=dev).repeat(K, 1, 1), kf_t=z(K, 3),
-            kf_fixed=torch.ones(K, dtype=torch.bool, device=dev), points=z(P, 3),
-            point_valid=z(P, dt=torch.bool), obs_kf=z(O, dt=torch.int64),
-            obs_pt=z(O, dt=torch.int64), obs_uv=z(O, 2), obs_w=z(O),
-            obs_valid=z(O, dt=torch.bool), K4=self.dmap.put(cfg.K4))
+        zb = lambda *s: np.zeros(s, bool)
+        zi = lambda *s: np.zeros(s, np.int32)
+        dm.capture("tri", None, 0, zi(B), zb(F), zb(B, F), zb(B, F), cfg.K4, cfg.sigma2,
+                   cfg.scale_factors)
+        dm.capture("fuse", None, np.full((2 * T, F), -1, np.int32), zb(2 * T, F), zi(2 * T),
+                   cfg.K4, cfg.scale_factors)
         for iterations in (5, 10):
-            self.ba_program.capture(iterations, prob)
+            dm.capture("local_ba", iterations, np.tile(np.eye(3), (K, 1, 1)), np.zeros((K, 3)),
+                       np.ones(K, bool), np.zeros((P, 3)), zb(P), zi(O), zi(O), zi(O), zi(O),
+                       zb(O), cfg.K4, cfg.inv_sigma2)
+        for n in (256, 2048):
+            dm.capture("attrs", None, np.full((n, self.map.max_obs), -1, np.int32),
+                       zi(n, self.map.max_obs), np.zeros((n, 3)), zi(n), cfg.scale_factors)
+            dm.capture_scatter(n)
 
     # ------------------------------------------------------------------
 
@@ -623,9 +629,7 @@ class LocalMapper:
             self.dmap, prob.kf_R, prob.kf_t, prob.kf_fixed, prob.points,
             prob.point_valid, prob.obs_kf, prob.obs_pt, obs_feat,
             obs_srckf, prob.obs_valid, prob.K4,
-            self.cfg.inv_sigma2.astype(np.float32), iterations=5,
-            program=self.ba_program,
-        )
+            self.cfg.inv_sigma2, iterations=5)
         # snapshot generations: points may be culled by other stages
         # before the writeback; never write into a recycled slot
         self._ba_pending = (kf, prob, all_kfs, pts, st.mp_gen[pts].copy(),
@@ -653,9 +657,7 @@ class LocalMapper:
             self.dmap, res1.kf_R, res1.kf_t, prob.kf_fixed, res1.points,
             prob.point_valid, prob.obs_kf, prob.obs_pt, obs_feat,
             obs_srckf, obs_valid2, prob.K4,
-            self.cfg.inv_sigma2.astype(np.float32), iterations=10,
-            program=self.ba_program,
-        )
+            self.cfg.inv_sigma2, iterations=10)
         self._ba2_pending = (kf, prob, all_kfs, pts, gens, obs_src, fetch_async(*res), res1)
 
     def ba2_merge(self, kf: int):

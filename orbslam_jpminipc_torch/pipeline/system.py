@@ -33,6 +33,7 @@ solvers.
 """
 from __future__ import annotations
 
+import weakref
 from collections import deque
 from time import monotonic as _monotonic
 
@@ -41,7 +42,6 @@ import numpy as np
 from ..config import SlamConfig
 from ..frontend.frame import Frame, build_frame
 from ..frontend.tracking import Tracker, TrackState
-from ..map.device_map import DeviceMap
 from ..map.keyframe_db import KeyFrameDatabase
 from ..map.map_state import MapState
 from ..parallel import mesh as pmesh
@@ -52,6 +52,12 @@ from ..utils.host import fetch
 from ..utils.tracing import get_tracer
 from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
+
+
+def _weak(method):
+    """`method`, called through a weak reference to its object."""
+    ref = weakref.WeakMethod(method)
+    return lambda *a, **k: ref()(*a, **k)
 
 
 class Slam:
@@ -75,13 +81,16 @@ class Slam:
             if (vocab is not None and enable_loop_closing)
             else None
         )
-        self.tracker.on_initialized = self._create_initial_map
-        self.tracker.on_new_keyframe = self._on_new_keyframe
+        # the tracker calls back through weak references: a dropped system
+        # is freed at once, with the device memory of its map mirror's
+        # programs, not at the collector's next pass
+        self.tracker.on_initialized = _weak(self._create_initial_map)
+        self.tracker.on_new_keyframe = _weak(self._on_new_keyframe)
         self.tracker.dmap = self.mapper.dmap
         if self.loop_closer is not None:
             self.loop_closer.dmap = self.mapper.dmap
         if cfg.async_mapping:
-            self.tracker.mapper_busy = self._mapper_busy
+            self.tracker.mapper_busy = _weak(self._mapper_busy)
         self.frame_count = 0
         self.trajectory: list[tuple[float, np.ndarray, np.ndarray]] = []
         self.n_loops_closed = 0
@@ -330,12 +339,15 @@ class Slam:
         """Phase 1 of warmup(): capture, at the config's shapes, every
         program the reference compiles ahead of time (its
         `_compile_programs`): the WORKING step (every segment and both arms
-        of its two host tests), both local-BA stages, the tracking host
-        path (extraction, frame-to-frame and local-map tracking, the
-        relocalization candidate, both ladder rungs and the initialization
-        attempt) and, with a loop closer, loop closing's matchers, the Sim3
-        RANSAC and refinement and the essential graph. On the CPU nothing
-        is captured.
+        of its two host tests), the map mirror's stage programs
+        (triangulation, fusion, both local-BA stages with their gathers, the
+        attrs pass and the point scatter at their first two row buckets,
+        the slice refresh), the tracking host path (extraction,
+        frame-to-frame and local-map tracking, the relocalization
+        candidate, both ladder rungs and the initialization attempt) and,
+        with a loop closer, loop closing's matchers, the Sim3 RANSAC and
+        refinement and the essential graph. On the CPU nothing is
+        captured.
 
         Left eager: the sharded essential graph of several cards."""
         if self.tracker.fused is not None:
@@ -402,13 +414,12 @@ class Slam:
         m._ba2_pending = None
         m._attrs_pending = []
         m._attrs_inflight = None
-        m.dmap = DeviceMap(self.map.max_kf, self.map.n_feat, self.map.max_mp, device=self.device)
-        tr.dmap = m.dmap
+        # emptied in place: the mirror's captured programs read its tensors
+        m.dmap.clear()
         self.pending = []
         if self.loop_closer is not None:
             self.loop_closer.map = self.map
             self.loop_closer.consistent_groups = []
-            self.loop_closer.dmap = m.dmap
 
     # ------------------------------------------------------------------
     # initial map (Tracking::CreateInitialMap, Tracking.cc:422-524)

@@ -14,7 +14,9 @@ frame asks `done()` and takes the result only when it costs no wait.
 
 `upload` is the other direction: a host array as a tensor on a device,
 staged in pinned host memory and queued behind the stream's work on a card
-(a plain `.to(device)` of pageable memory waits for the stream to drain).
+(a plain `.to(device)` of pageable memory waits for the stream to drain);
+`upload_into` writes it into an existing tensor the same way (a buffer a
+captured program reads in place).
 
 `host_tensor` is a host array as a CPU tensor with the dtypes the map
 mirror uploads (float64 becomes float32): a captured program's copy-in
@@ -132,3 +134,15 @@ def upload(a, device) -> torch.Tensor:
     if t.device.type != "cpu":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def upload_into(dst: torch.Tensor, a):
+    """Copy a host array (or CPU tensor) into the existing tensor `dst` (its
+    shape; the dtype converted where it differs), staged and queued as
+    `upload` does on a card."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a)).reshape(np.shape(a))
+    if dst.device.type == "cuda" and t.device.type == "cpu":
+        dst.copy_(t.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(t)

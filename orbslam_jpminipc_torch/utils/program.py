@@ -21,9 +21,12 @@ kernel builds happen there, not inside the capture). Inputs come two ways:
 * in place (`copy_in=False`): the caller passes the same tensors at every
   call, typically another program's outputs or state buffers it owns; the
   program checks that they are;
-* copied (`copy_in=True`): the program owns one buffer per input, allocated
-  at its first call, and copies the caller's tensors (or host tensors, staged
-  in pinned memory) into them before each replay.
+* copied (`copy_in=True`): the program owns one byte buffer, allocated at
+  its first call, with a view of it for each input; before each replay the
+  host tensors' bytes go in as one pinned copy (the reference's
+  `mirror_call`: a function of many small host arrays pays one transfer,
+  not one each), and tensors already on the device are copied into their
+  views.
 
 Outputs come back in place (the graph's own buffers, overwritten by the next
 replay: for a chain of programs within one call) or, with `copy_out=True`, as
@@ -79,20 +82,28 @@ class _Layout(NamedTuple):
     slots: tuple  # (offset, bytes, dtype, shape) per leaf
 
 
-def _pack(out):
-    """The outputs copied into one byte buffer: (buffer, layout)."""
-    leaves, spec = pytree.tree_flatten(out)
+def _slots(leaves) -> tuple:
+    """(offset, bytes, dtype, shape) of each tensor in one byte buffer, and
+    the buffer's size."""
     slots, size = [], 0
     for x in leaves:
         if not isinstance(x, torch.Tensor):
-            raise TypeError(f"a program's outputs must be tensors, got {type(x).__name__}")
+            raise TypeError(f"a program's inputs and outputs must be tensors, "
+                            f"got {type(x).__name__}")
         size = -(-size // _ALIGN) * _ALIGN
         n = x.numel() * x.element_size()
         slots.append((size, n, x.dtype, tuple(x.shape)))
         size += n
+    return tuple(slots), size
+
+
+def _pack(out):
+    """The outputs copied into one byte buffer: (buffer, layout)."""
+    leaves, spec = pytree.tree_flatten(out)
+    slots, size = _slots(leaves)
     dev = leaves[0].device if leaves else torch.device("cpu")
     buf = torch.empty(size, dtype=torch.uint8, device=dev)
-    layout = _Layout(spec, tuple(slots))
+    layout = _Layout(spec, slots)
     for view, x in zip(_views(buf, layout), leaves):
         view.copy_(x)
     return buf, layout
@@ -159,33 +170,50 @@ class Program:
 
     def _stage(self, inputs) -> tuple:
         """The inputs the function reads: the caller's (checked to be the same
-        tensors as at the first call, on a card), or the program's own buffers
+        tensors as at the first call, on a card), or the program's own views
         with the caller's tensors copied in."""
         leaves, spec = pytree.tree_flatten(inputs)
-        if self._inputs is None:
-            if self.copy_in:
-                self._inputs = [torch.empty(x.shape, dtype=x.dtype, device=self.device)
-                                for x in leaves]
-            else:
-                self._inputs = list(leaves)
-        own = self._inputs
-        if len(leaves) != len(own):
-            raise ValueError(f"program {self.name}: {len(leaves)} inputs, "
-                             f"{len(own)} at its first call")
         if self.copy_in:
-            for dst, x in zip(own, leaves):
-                if x.shape != dst.shape or x.dtype != dst.dtype:
-                    raise ValueError(
-                        f"program {self.name}: input {tuple(x.shape)} {x.dtype}, its "
-                        f"buffer is {tuple(dst.shape)} {dst.dtype}")
-                if x.device.type == "cpu" and dst.is_cuda and not x.is_pinned():
-                    x = x.pin_memory()
-                dst.copy_(x, non_blocking=True)
-            return pytree.tree_unflatten(own, spec)
-        if self.device.type == "cuda" and any(a is not b for a, b in zip(leaves, own)):
+            return pytree.tree_unflatten(self._copy_in(leaves), spec)
+        if self._inputs is None:
+            self._inputs = list(leaves)
+        if len(leaves) != len(self._inputs):
+            raise ValueError(f"program {self.name}: {len(leaves)} inputs, "
+                             f"{len(self._inputs)} at its first call")
+        if self.device.type == "cuda" and any(a is not b for a, b in zip(leaves, self._inputs)):
             raise ValueError(f"program {self.name} reads its inputs in place: pass the "
                              "tensors of its first call")
         return inputs
+
+    def _copy_in(self, leaves) -> list:
+        """Copy the inputs into the views of the program's one byte buffer:
+        the host tensors' bytes gathered in one pinned buffer and copied in
+        at once, device tensors each into its view. Returns the views."""
+        slots, size = _slots(leaves)
+        if self._inputs is None:
+            self._packed = torch.empty(size, dtype=torch.uint8, device=self.device)
+            self._slots = slots
+            self._inputs = _views(self._packed, _Layout(None, slots))
+        elif slots != self._slots:
+            raise ValueError(f"program {self.name}: inputs "
+                             f"{[(s[3], s[2]) for s in slots]}, its buffer holds "
+                             f"{[(s[3], s[2]) for s in self._slots]}")
+        host = [i for i, x in enumerate(leaves) if x.device.type == "cpu"]
+        if self.device.type == "cuda" and host:
+            stage = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            staged = _views(stage, _Layout(None, slots))
+            for i in host:
+                staged[i].copy_(leaves[i])
+            # the pinned block is not reused before this copy has landed
+            # (the caching host allocator records it on the stream)
+            self._packed.copy_(stage, non_blocking=True)
+        else:
+            for i in host:
+                self._inputs[i].copy_(leaves[i])
+        for i, x in enumerate(leaves):
+            if x.device.type != "cpu":
+                self._inputs[i].copy_(x)
+        return self._inputs
 
     def run(self, variant, *inputs):
         """One call: the outputs (the graph's own on a card, unless
@@ -280,13 +308,19 @@ class ProgramSet:
     inputs copied in and the outputs copied out. `capture` makes the
     program of its inputs' shapes on the CPU too (without capturing
     anything), so a test can tell which shapes a run reached beyond those
-    captured ahead of time."""
+    captured ahead of time. With `log` False its calls stay out of an
+    active `CallLog`: for a function that reads state the program does not
+    copy in (the map mirror's stages), which the log's later eager run
+    would not see as the call did (tests/test_torch_programs_host.py holds
+    a whole run's log)."""
 
-    def __init__(self, fn, device, name: str, pool: GraphPool | None = None):
+    def __init__(self, fn, device, name: str, pool: GraphPool | None = None,
+                 log: bool = True):
         self.fn = fn
         self.device = torch.device(device)
         self.name = name
         self.pool = pool if pool is not None else GraphPool()
+        self.log = log
         self.programs: dict = {}   # signature -> Program
 
     def program(self, inputs) -> Program:
@@ -302,7 +336,7 @@ class ProgramSet:
     def run(self, variant, *inputs):
         prog = self.program(inputs)
         out = prog.run(variant, *inputs)
-        if _log is not None:
+        if _log is not None and self.log:
             _log.note(prog.name, variant, inputs, out,
                       lambda *a: self.fn(variant, *a), self.device)
         return out

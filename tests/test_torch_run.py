@@ -1,8 +1,10 @@
 """The port's command line (`python -m orbslam_jpminipc_torch.run`, the
-counterpart of orbslam_jpminipc_tpu/run.py) and `eval_torch.py` (the
-counterpart of eval.py), driven on the CPU with `--device cpu` over the
-`forward` trajectory, whose motion per frame does not depend on the
-sequence's length: 16 frames initialize and track."""
+counterpart of orbslam_jpminipc_tpu/run.py), driven on the CPU with
+`--device cpu` over the `forward` trajectory, whose motion per frame does
+not depend on the sequence's length: 16 frames initialize and track. Here
+the saved and resumed world and the refusals; the realtime and settings
+runs and `eval_torch.py` are tests/test_torch_run_warmed.py's (a file of
+its own, so the two share the run's workers)."""
 import contextlib
 import io
 import re
@@ -11,19 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-import eval_torch
 from orbslam_jpminipc_torch import run
-from orbslam_jpminipc_torch.config import SlamConfig
-from orbslam_jpminipc_torch.io.dataset import SyntheticSequence
-from orbslam_jpminipc_torch.vocab.vocabulary import load_vocabulary
 
 torch.set_num_threads(2)
 
 BASE = ["--dataset", "synthetic:forward", "--frames", "16", "--n-features", "600",
         "--device", "cpu"]
-# eval.py's run_sequence keys with ground truth
-EVAL_KEYS = {"frames", "frames_tracked", "keyframes", "points", "loops_closed", "fps",
-             "ate_rmse", "extent_m", "ate_pct_extent", "kf_ate_rmse"}
 
 
 def _tum_lines(path):
@@ -64,29 +59,6 @@ def test_run_load_world(first_run, tmp_path, capsys):
     assert resumed.n_keyframes >= slam.n_keyframes
 
 
-def test_run_realtime_counts_drops(tmp_path, capsys):
-    run.main(BASE + ["--out", str(tmp_path / "kf.txt"), "--realtime"])
-    text = capsys.readouterr().out
-    m = re.search(r"processed (\d+)/16 frames .* dropped (\d+) \(([0-9.]+)%\)", text)
-    assert m, text
-    done, dropped = int(m.group(1)), int(m.group(2))
-    # the CPU is far slower than 30 frames a second: most frames are dropped
-    assert dropped > 0 and done + dropped == 16
-
-
-def test_run_settings_with_harris_score(tmp_path, capsys):
-    yaml = tmp_path / "settings.yaml"
-    yaml.write_text("%YAML:1.0\nCamera.fx: 500.0\nCamera.fy: 500.0\nCamera.cx: 320.0\n"
-                    "Camera.cy: 240.0\nCamera.fps: 30\nORBextractor.nFeatures: 600\n"
-                    "ORBextractor.nScoreType: 0\n")
-    assert SlamConfig.from_yaml(str(yaml)).use_harris_score
-    slam = run.main(BASE + ["--out", str(tmp_path / "kf.txt"), "--settings", str(yaml),
-                            "--realtime"])
-    # the command line runs the package's default frame loop, pipelined
-    assert slam.cfg.use_harris_score and slam.cfg.pipelined_tracking
-    assert "processed" in capsys.readouterr().out
-
-
 def test_run_without_a_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no.*CUDA|current CUDA device"):
@@ -100,17 +72,3 @@ def test_run_viz_refused(tmp_path):
     blocker.write_text("")
     with pytest.raises(FileExistsError):
         run.main(BASE + ["--viz", str(blocker)])
-
-
-def test_eval_run_sequence_keys():
-    seq = SyntheticSequence(n_frames=16, trajectory="forward", seed=0, device="cpu")
-    cfg = SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0, n_features=600, max_kf=64,
-                     max_mp=8192, local_ba_obs=8192, pipelined_tracking=False)
-    vocab = load_vocabulary(eval_torch.os.path.join(
-        eval_torch.REPO, "orbslam_jpminipc_torch", "data", "vocab_tree64k.npz"), device="cpu")
-    gt = {round(float(seq.timestamps[i]), 6): seq.poses[i] for i in range(len(seq))}
-    res = eval_torch.run_sequence(seq, cfg, vocab, 16, gt_poses=gt, verbose=False,
-                                  device="cpu")
-    assert set(res) == EVAL_KEYS, set(res) ^ EVAL_KEYS
-    assert res["frames"] == 16 and res["frames_tracked"] > 10 and res["loops_closed"] == 0
-    assert 0 <= res["kf_ate_rmse"] < 0.1 and np.isfinite(res["ate_pct_extent"])

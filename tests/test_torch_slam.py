@@ -291,7 +291,9 @@ def test_loop_close_on_a_constructed_loop_corrects_the_map(post_loop_gba):
     old_closer = slam.loop_closer
     slam.reset()
     assert slam.loop_closer is old_closer and old_closer.map is slam.map is not st2
-    assert old_closer.dmap is slam.mapper.dmap is not dm and old_closer.consistent_groups == []
+    # the one mirror, emptied in place (its captured programs read its tensors)
+    assert old_closer.dmap is slam.mapper.dmap is dm and old_closer.consistent_groups == []
+    assert not dm.mp_valid.any() and not dm.kf_t.any() and not dm.kf_feat_valid.any()
     assert slam.n_keyframes == 0 and slam.pending == []
 
 

@@ -378,3 +378,27 @@ def test_kernel_nan_and_bad_shapes_on_the_card(card):
         k.eigh_small(torch.eye(13, device=card)[None])
     with pytest.raises(ValueError):
         k.svd_small(torch.eye(4, device=card, dtype=torch.float64)[None])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n", [("eigh", 3), ("eigh", 4), ("eigh", 9), ("eigh", 12),
+                                    ("svd", 3), ("svd", 4)])
+def test_kernel_result_does_not_depend_on_its_warp(card, kind, n):
+    """The kernel stops when no matrix of a warp rotated in a sweep (one
+    vote a warp); a matrix that converged earlier rotates nothing in the
+    sweeps after, so each matrix's result equals its own launch's (a stop
+    for that matrix alone), bit for bit: every matrix of a batch against a
+    launch of it alone and a launch beside slow neighbours."""
+    from orbslam_jpminipc_torch.ops import small_linalg_cuda as k
+
+    rng = np.random.default_rng(1100 + n)
+    A = _spd(rng, 48, n) if kind == "eigh" else rng.normal(size=(48, n, n)).astype(np.float32)
+    A[::3] = np.eye(n, dtype=np.float32) * 2   # converged at once
+    fn = k.eigh_small if kind == "eigh" else k.svd_small
+    batch = fn(torch.from_numpy(A).to(card))
+    # each matrix alone, and again after a random one (matrix 1) in its warp
+    for b in range(0, 48, 5):
+        alone = fn(torch.from_numpy(A[b:b + 1]).to(card))
+        paired = fn(torch.from_numpy(A[[1, b]]).to(card))
+        for x, y, z in zip(batch, alone, paired):
+            assert torch.equal(x[b], y[0]) and torch.equal(x[b], z[1]), (kind, n, b)
