@@ -415,20 +415,26 @@ def _patch(obj, name, make):
             delattr(obj, name)
 
 
+def _reads() -> int:
+    """The device -> host reads made so far (the tracer's counter `reads`)."""
+    from orbslam_jpminipc_torch.utils.tracing import get_tracer
+
+    return get_tracer().counts["reads"]
+
+
 def _labelled(torch, label, reads=None):
     """make(orig): `orig` run inside a torch.profiler range named `label`
     (`_launches_in` counts the host's launches made inside such ranges);
     with `reads` (a list), the batched host reads of each call are
     appended to it."""
-    from orbslam_jpminipc_torch.utils import host
 
     def make(orig):
         def wrapped(*a, **k):
-            r0 = host.READS
+            r0 = _reads()
             with torch.profiler.record_function(label):
                 out = orig(*a, **k)
             if reads is not None:
-                reads.append(host.READS - r0)
+                reads.append(_reads() - r0)
             return out
         return wrapped
     return make
@@ -1686,7 +1692,6 @@ def phase_system(torch, fast_cuda, smi):
     from orbslam_jpminipc_torch.frontend.tracking import TrackState
     from orbslam_jpminipc_torch.ops import small_linalg_cuda
     from orbslam_jpminipc_torch.pipeline.system import Slam
-    from orbslam_jpminipc_torch.utils import host
     from orbslam_jpminipc_torch.utils.tracing import get_tracer
 
     sf = dict(np.load(SLAM_FIXTURE))
@@ -1730,7 +1735,7 @@ def phase_system(torch, fast_cuda, smi):
         for i in range(n):
             was = slam.tracker.state
             fused = slam.tracker.fused_usable(slam.frame_count)
-            reads0, launches0, kf0 = host.READS, fast_cuda.LAUNCHES, len(kf_events)
+            reads0, launches0, kf0 = _reads(), fast_cuda.LAUNCHES, len(kf_events)
             profiled = count_syncs and was != TrackState.WORKING
             stack = contextlib.ExitStack()
             if profiled:
@@ -1770,7 +1775,7 @@ def phase_system(torch, fast_cuda, smi):
                 "pose": pose.tolist() if np.isfinite(pose).all() else None,
                 "dcentre": float(np.abs(_centre(pose) - _centre(ref)).max()) if both else None,
                 "has_pose": bool(np.isfinite(pose).all()), "ref_has_pose": bool(np.isfinite(ref).all()),
-                "fetches": host.READS - reads0, "syncs": syncs if count_syncs else None,
+                "fetches": _reads() - reads0, "syncs": syncs if count_syncs else None,
                 "sync_sites": sites, "init_attempt": attempt,
                 "fast_launches": fast_cuda.LAUNCHES - launches0, "fused": fused,
             })
@@ -2068,7 +2073,6 @@ def phase_reloc_async(torch, fast_cuda, smi):
     from orbslam_jpminipc_torch.frontend.tracking import TrackState
     from orbslam_jpminipc_torch.ops import small_linalg_cuda
     from orbslam_jpminipc_torch.pipeline.system import Slam
-    from orbslam_jpminipc_torch.utils import host
     from orbslam_jpminipc_torch.utils.program import CallLog
     from orbslam_jpminipc_torch.utils.tracing import StageQueueAudit, get_tracer
     from orbslam_jpminipc_torch.vocab.vocabulary import load_vocabulary
@@ -2156,7 +2160,7 @@ def phase_reloc_async(torch, fast_cuda, smi):
             for i, (img, ts) in enumerate(zip(images, timestamps)):
                 was = slam.tracker.state
                 fused = slam.tracker.fused_usable(slam.frame_count)
-                reads0, launches0, kf0 = host.READS, fast_cuda.LAUNCHES, len(kf_events)
+                reads0, launches0, kf0 = _reads(), fast_cuda.LAUNCHES, len(kf_events)
                 ev0 = len(events)
                 prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
                         if profile_lost and was == TrackState.LOST else None)
@@ -2196,7 +2200,7 @@ def phase_reloc_async(torch, fast_cuda, smi):
                     "n_keyframes": slam.n_keyframes, "n_points": slam.n_points,
                     "queue_depth": sum(len(st) for _, st in slam.pending),
                     "centre": _centre(pose).tolist() if np.isfinite(pose).all() else None,
-                    "fetches": host.READS - reads0, "syncs": syncs if count_syncs else None,
+                    "fetches": _reads() - reads0, "syncs": syncs if count_syncs else None,
                     "sync_sites": sites,
                     "fast_launches": fast_cuda.LAUNCHES - launches0, "fused": fused,
                 })
@@ -2726,7 +2730,6 @@ def phase_loop(torch, fast_cuda, smi):
 
     from orbslam_jpminipc_torch.ops import small_linalg_cuda
     from orbslam_jpminipc_torch.solvers import essential_graph, gba
-    from orbslam_jpminipc_torch.utils import host
     from orbslam_jpminipc_torch.utils.program import CallLog, ProgramSet
     from orbslam_jpminipc_torch.utils.tracing import get_tracer
     from orbslam_jpminipc_torch.vocab.vocabulary import load_vocabulary
@@ -2801,7 +2804,7 @@ def phase_loop(torch, fast_cuda, smi):
         f"(the first pass's system put back as a fresh one)")
     tracer.reset()
     torch.cuda.reset_peak_memory_stats()   # (allocated bytes: the cache stays warm)
-    reads0 = host.READS
+    reads0 = _reads()
     small_linalg_cuda.LAUNCHES = 0
     out, run_ms = timed(lambda: loop_run(slam, info, lf))
     sl_launches = small_linalg_cuda.LAUNCHES
@@ -2832,7 +2835,7 @@ def phase_loop(torch, fast_cuda, smi):
         f"{ba_held['shape']} with {ba_held['n_obs']} observations: {gba_ms[0]:.1f} ms; "
         f"{json.dumps(ba_held)}")
     log(f"[loop] {smi}: the whole pass over {len(out['per_kf'])} keyframes {run_ms:.1f} ms, "
-        f"{host.READS - reads0} batched reads; peak device memory {peak} bytes")
+        f"{_reads() - reads0} batched reads; peak device memory {peak} bytes")
 
     # the two long solvers alone, under the profiler: kernels launched; the
     # essential graph captured (its replay, the copies in and out) and eager,

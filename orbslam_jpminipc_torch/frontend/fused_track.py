@@ -498,7 +498,7 @@ class FusedContext:
         links.append(Link(None, Arm(p1.graph)))
         links.append(Link(p1.out.recover, Arm(recover.graph, (buf, recover.packed[0])),
                           Arm(plain.graph, (buf, plain.packed[0]))))
-        self._chain = Chain(links, self.device)
+        self._chain = Chain(links, self.device, name="step")
         self._chain_out = (buf, plain.packed[1])
 
     def _captured(self) -> bool:

@@ -112,7 +112,12 @@ class Slam:
     def process(self, image, timestamp: float = 0.0) -> tuple[TrackState, Frame]:
         """One frame: a (H, W) uint8 host array or tensor. Returns the
         tracking state and the frame (its pose in frame.R / frame.t): this
-        frame's, or pipelined, the most recently completed one's."""
+        frame's, or pipelined, the most recently completed one's. The call
+        is the tracer's root span `call`."""
+        with self.tracer.stage("call"):
+            return self._process(image, timestamp)
+
+    def _process(self, image, timestamp: float) -> tuple[TrackState, Frame]:
         frame_id = self.frame_count
         self.frame_count += 1
         tr = self.tracker

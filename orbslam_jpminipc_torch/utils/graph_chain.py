@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from . import nvcc
+from .tracing import get_tracer
 
 LAUNCHES = 0
 
@@ -39,6 +40,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-sh
 
 _lock = threading.Lock()
 _lib = None
+_tracer = get_tracer()
 
 
 class _Arm(ctypes.Structure):  # ChainArm in csrc/graph_chain.cu
@@ -111,10 +113,12 @@ def _count(n: int):
 
 
 class Chain:
-    """The links as one executable graph on `device` (see the module)."""
+    """The links as one executable graph on `device` (see the module);
+    `name` names its launches in the tracer."""
 
-    def __init__(self, links, device):
+    def __init__(self, links, device, name: str):
         self.device = torch.device(device)
+        self.name = name
         self.links = list(links)
         self.n_branches = sum(link.pred is not None for link in self.links)
         lib = build()
@@ -148,10 +152,14 @@ class Chain:
         self._lib, self._exec, self._graph = lib, exec_, graph
 
     def launch(self):
-        """One launch of the whole chain on the current stream; no wait."""
+        """One launch of the whole chain on the current stream; no wait. In
+        the tracer's detail mode it lies between two timing events."""
+        begin = _tracer.launch_begin() if _tracer.detail else None
         stream = torch.cuda.current_stream(self.device).cuda_stream
         _check(self._lib, self._lib.graph_chain_launch(self._exec, stream),
                "graph_chain_launch")
+        if begin is not None:
+            _tracer.launch_end(begin, self.name)
         if self.n_branches:
             _count(self.n_branches)
 

@@ -22,15 +22,22 @@ captured program reads in place).
 mirror uploads (float64 becomes float32): a captured program's copy-in
 stages it in pinned memory and queues the copy.
 
-`READS` counts the copies made from a CUDA device (a CPU tensor costs no
-read), so a caller can report host reads per frame.
+The tracer's counter `reads` (`utils/tracing.py`) counts the copies made
+from a CUDA device (a CPU tensor costs no read), so a caller can report host
+reads per frame. In the tracer's detail mode each wait for the device, a
+`fetch` or a `result()` whose copy has not landed, is timed and credited to
+the spans open around it.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
-READS = 0
+from .tracing import get_tracer
+
+_tracer = get_tracer()
 
 
 def _np_dtype(dt: torch.dtype) -> np.dtype:
@@ -66,19 +73,23 @@ def _layout(tensors):
 
 def fetch(*tensors: torch.Tensor) -> tuple[np.ndarray, ...]:
     """The given tensors as host numpy arrays (copies), in one transfer."""
-    global READS
     if _on_cpu(tensors):
         return tuple(t.detach().numpy().copy() for t in tensors)
-    buf = _flatten(tensors).cpu().numpy()
-    READS += 1
-    return _split(buf, _layout(tensors))
+    buf = _flatten(tensors)
+    if _tracer.detail:
+        t0 = time.perf_counter_ns()
+        buf = buf.cpu()
+        _tracer.note_wait(t0, time.perf_counter_ns())
+    else:
+        buf = buf.cpu()
+    _tracer.counts["reads"] += 1
+    return _split(buf.numpy(), _layout(tensors))
 
 
 class AsyncFetch:
     """A queued device -> host read of several tensors (see `fetch_async`)."""
 
     def __init__(self, tensors):
-        global READS
         self._arrays = None
         self._event = None
         if _on_cpu(tensors):
@@ -90,7 +101,7 @@ class AsyncFetch:
         self._host.copy_(dev, non_blocking=True)
         self._event = torch.cuda.Event()
         self._event.record()
-        READS += 1
+        _tracer.counts["reads"] += 1
 
     def done(self) -> bool:
         """Has the copy landed? Never waits for the device."""
@@ -99,7 +110,12 @@ class AsyncFetch:
     def result(self) -> tuple[np.ndarray, ...]:
         """The arrays; waits for the copy when it has not landed yet."""
         if self._arrays is None:
-            self._event.synchronize()
+            if _tracer.detail and not self._event.query():
+                t0 = time.perf_counter_ns()
+                self._event.synchronize()
+                _tracer.note_wait(t0, time.perf_counter_ns())
+            else:
+                self._event.synchronize()
             self._arrays = _split(self._host.numpy(), self._layout)
             self._event = self._host = None
         return self._arrays

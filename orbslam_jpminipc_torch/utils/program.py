@@ -55,6 +55,8 @@ from typing import Callable, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
+from .tracing import get_tracer
+
 # packed outputs start on this boundary, so every dtype can view its slot
 _ALIGN = 16
 
@@ -62,6 +64,7 @@ _ALIGN = 16
 _noted: list | None = None
 # the active CallLog, if any
 _log = None
+_tracer = get_tracer()
 
 
 def count_launch(add: Callable[[int], None]):
@@ -217,24 +220,31 @@ class Program:
 
     def run(self, variant, *inputs):
         """One call: the outputs (the graph's own on a card, unless
-        `copy_out`). The first call of a variant on a card captures it."""
-        inputs = self._stage(inputs)
+        `copy_out`). The first call of a variant on a card captures it. In
+        the tracer's detail mode the call's device work, copy-in to copy-out,
+        lies between two timing events."""
         if self.device.type != "cuda":
+            inputs = self._stage(inputs)
             out = self.fn(variant, *inputs)
             if not self.copy_out:
                 return out
             buf, layout = _pack(out)
             return unpack(buf.clone(), layout)
+        begin = _tracer.launch_begin() if _tracer.detail else None
+        inputs = self._stage(inputs)
         cap = self._graphs.get(variant)
         if cap is None:
             cap = self._capture(variant, inputs)
         cap.graph.replay()
         for add in cap.launches:
             add(1)
-        if cap.packed is None:
-            return cap.out
-        buf, layout = cap.packed
-        return unpack(buf.clone(), layout)
+        out = cap.out
+        if cap.packed is not None:
+            buf, layout = cap.packed
+            out = unpack(buf.clone(), layout)
+        if begin is not None:
+            _tracer.launch_end(begin, self.name)
+        return out
 
     def capture(self, variant, *inputs):
         """Capture `variant` ahead of its first call, without running it
@@ -255,6 +265,12 @@ class Program:
         return self._graphs[variant]
 
     def _capture(self, variant, inputs) -> _Captured:
+        """Capture `variant` (inside the tracer's span `capture`)."""
+        _tracer.log("capture", program=self.name, variant=repr(variant))
+        with _tracer.stage("capture"):
+            return self._capture_graph(variant, inputs)
+
+    def _capture_graph(self, variant, inputs) -> _Captured:
         global _noted
         with torch.cuda.device(self.device):
             stream = torch.cuda.Stream()

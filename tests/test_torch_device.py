@@ -216,13 +216,13 @@ def test_fetch_async_on_the_card_lands_without_a_wait_and_equals_fetch():
                torch.arange(11, dtype=torch.int32, device="cuda"),
                torch.rand(5, generator=gen, device="cuda") > 0.5)
     ref = host.fetch(*tensors)
-    reads = host.READS
+    reads = host.get_tracer().counts["reads"]
     # queue the read behind a long program: it cannot have landed at once
     a = torch.rand((4096, 4096), generator=gen, device="cuda")
     for _ in range(20):
         a = a @ a * 1e-3
     h = host.fetch_async(*tensors)
-    assert host.READS == reads + 1
+    assert host.get_tracer().counts["reads"] == reads + 1
     early = h.done()
     deadline = time.perf_counter() + 30.0
     while not h.done() and time.perf_counter() < deadline:
