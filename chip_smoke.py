@@ -26,12 +26,17 @@ Phases (any failure raises, so the script exits non-zero):
                  position, the same signs, where rounding cannot decide
                  them) and torch.linalg in float64, timed with its bound
                  (`kernel_small_linalg`; tools/small_linalg_compare.py
-                 times it against an earlier commit's build); and what
-                 EPnP's N = 1 case costs on every set (`epnp_n1_cost`)
+                 times it against an earlier commit's build); what
+                 EPnP's N = 1 case costs on every set (`epnp_n1_cost`);
+                 and `pose_lm` (the pose LM kernel) on the step's two
+                 passes and a relocalization candidate's LM against its
+                 plain version, timed on the step's passes
+                 (`kernel_pose_lm`)
   4. slice       the fused step (FusedContext/FusedStep) on the card over the
                  fixture's frames from the JAX reference's recorded state,
                  checked against the reference's recorded outputs; the FAST
-                 kernel must have run once per frame. Then one frame from
+                 kernel must have run once per frame, the pose LM kernel
+                 twice. Then one frame from
                  a perturbed seed pose, where the step must take its wide
                  recovery pass, against the reference's outputs there. The
                  step runs as its captured programs (utils/program.py),
@@ -452,21 +457,22 @@ def phase_device(torch):
 
 
 def phase_build(fast_cuda):
-    """The three CUDA sources of the main path, one nvcc each, started
+    """The four CUDA sources of the main path, one nvcc each, started
     together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from orbslam_jpminipc_torch.ops import small_linalg_cuda
+    from orbslam_jpminipc_torch.ops import pose_lm_cuda, small_linalg_cuda
     from orbslam_jpminipc_torch.utils import graph_chain
 
     t0 = time.perf_counter()
-    libs = (fast_cuda, graph_chain, small_linalg_cuda)
+    libs = (fast_cuda, graph_chain, small_linalg_cuda, pose_lm_cuda)
     with ThreadPoolExecutor(len(libs)) as pool:
         for job in [pool.submit(lib.build) for lib in libs]:
             job.result()
     dt = time.perf_counter() - t0
     log(f"[build] {', '.join(lib.library_path().name for lib in libs)} in {dt:.2f} s")
-    for line in (fast_cuda.build_log + small_linalg_cuda.build_log).splitlines():
+    for line in (fast_cuda.build_log + small_linalg_cuda.build_log
+                 + pose_lm_cuda.build_log).splitlines():
         if "registers" in line or "smem" in line or "spill" in line or "entry function" in line:
             log(f"[build] {line.strip()}")
     return dt
@@ -979,6 +985,124 @@ def kernel_small_linalg(torch, smi):
     return res
 
 
+# ---- the pose LM kernel (csrc/pose_lm.cu) -------------------------------------
+
+PLM_POSE_TOL = 1e-5      # R and t against the plain version (tests/test_torch_pose_lm.py)
+PLM_GATE_REL = 1e-4      # an edge this close to its gate may fall either way
+PLM_DIFFER_MAX = 1       # such edges a call
+
+
+def _plm_calls(torch, fx, FusedContext, SlamConfig):
+    """The pose LM calls of the main path, recorded on the card: the step's
+    two passes (2 and 4 rounds) on fixture frame 0, the step run eagerly
+    from the fixture's seed, and one relocalization candidate's LM on a
+    seeded scene (EPnP RANSAC over 1000 points, 600 on the pose, then 4
+    rounds on its inliers, as `_reloc_candidate_prog`). Each call: (site,
+    its arguments, its keyword arguments)."""
+    from orbslam_jpminipc_torch.solvers import pnp, pose_opt
+
+    calls, site = [], {"now": None}
+
+    def recorder(fn):
+        def wrapped(*a, **kw):
+            calls.append((site["now"], [x.detach().clone() for x in a], dict(kw)))
+            return fn(*a, **kw)
+        return wrapped
+
+    ctx = _context(FusedContext, SlamConfig, fx)
+    _seed(ctx, fx)
+    image = torch.as_tensor(fx["images"][0]).cuda()
+    with _patch(pose_opt, "optimize_pose", recorder), torch.no_grad():
+        site["now"] = "step"
+        ctx.step(image, ctx.R, ctx.t, ctx.vel_R, ctx.vel_t, ctx.has_vel, ctx.slice)
+        dev = "cuda"
+        gen = torch.Generator(device=dev).manual_seed(5)
+        K4 = torch.tensor([500.0, 500.0, 320.0, 240.0], device=dev)
+        xw = torch.rand((1000, 3), generator=gen, device=dev) * 2 - 1 + torch.tensor(
+            [0.0, 0.0, 4.0], device=dev)
+        uv = 500.0 * xw[:, :2] / xw[:, 2:] + torch.tensor([320.0, 240.0], device=dev)
+        mask = torch.arange(1000, device=dev) < 600
+        uv = torch.where(mask[:, None], uv, uv + 40.0)
+        res = pnp.solve_pnp(pnp.sample_minimal_sets(mask, pnp.N_HYP, gen), xw, uv, mask, K4,
+                            torch.full((1000,), 5.991, device=dev))
+        site["now"] = "reloc_candidate"
+        pose_opt.optimize_pose(res.R, res.t, xw, uv, torch.ones(1000, device=dev),
+                               mask & res.inliers, K4)
+    torch.cuda.synchronize()
+    return calls
+
+
+def _plm_hold(torch, args, kw):
+    """The kernel against the plain version on one call's inputs."""
+    from orbslam_jpminipc_torch.ops import pose_lm_cuda as k
+    from orbslam_jpminipc_torch.solvers import pose_opt
+    from orbslam_jpminipc_torch.solvers.reproj import residuals
+
+    got = k.optimize_pose(*args, **kw)
+    again = k.optimize_pose(*args, **kw)
+    ref = pose_opt.optimize_pose_plain(*args, **kw)
+    torch.cuda.synchronize()
+    differ = got.inliers != ref.inliers
+    e, _ = residuals(got.R, got.t, args[2], args[3], args[6])
+    c = torch.sum(e * e, -1) * args[4]
+    gate = pose_opt._CHI2_GATES[kw.get("n_rounds", 4) - 1]
+    near = (c - gate).abs() <= PLM_GATE_REL * gate
+    row = {"n": int(args[2].shape[0]), "n_rounds": kw.get("n_rounds", 4),
+           "valid": int(args[5].sum()),
+           "dR": float((got.R - ref.R).abs().max()), "dt": float((got.t - ref.t).abs().max()),
+           "inliers": int(got.n_inliers), "plain_inliers": int(ref.n_inliers),
+           "differ": int(differ.sum()), "differ_off_gate": int((differ & ~near).sum()),
+           "chi2": float(got.chi2), "plain_chi2": float(ref.chi2),
+           "equal_bits_twice": all(torch.equal(a, b) for a, b in zip(got, again))}
+    row["ok"] = (max(row["dR"], row["dt"]) <= PLM_POSE_TOL and row["differ"] <= PLM_DIFFER_MAX
+                 and row["differ_off_gate"] == 0 and row["equal_bits_twice"])
+    return row
+
+
+def kernel_pose_lm(torch, smi, fx, FusedContext, SlamConfig):
+    """`pose_lm` on the card: the kernel against its plain version on the
+    main path's calls (`_plm_calls`: R and t within PLM_POSE_TOL, the same
+    inliers but edges at a gate, equal bits twice), then the step's pass 2
+    (1000 rows, 4 rounds) and pass 1 (2 rounds) timed: the kernel (CUDA
+    events, and the profiler's device time), its launches, the plain
+    version (`pose_opt.optimize_pose_plain`). No PyTorch call computes the
+    function (`library_ms` null). The bound is a latency floor, not bytes
+    or operations (csrc/pose_lm.cu's header; PERF.md section 6)."""
+    from orbslam_jpminipc_torch.ops import pose_lm_cuda as k
+    from orbslam_jpminipc_torch.solvers import pose_opt
+
+    calls = _plm_calls(torch, fx, FusedContext, SlamConfig)
+    rows = []
+    for site, args, kw in calls:
+        row = _plm_hold(torch, args, kw)
+        row["site"] = site
+        rows.append(row)
+    log(f"[kernel] pose_lm: {len(rows)} calls held against the plain version "
+        f"(R, t within {PLM_POSE_TOL}): {json.dumps(rows)}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad or [r["n_rounds"] for r in rows] != [2, 4, 4]:
+        raise AssertionError(f"[kernel] pose_lm off its plain version: {rows}")
+    res = {"calls": rows, "max_abs_err": max(max(r["dR"], r["dt"]) for r in rows)}
+    for (site, args, kw), name in zip(calls[:2], ("pass1", "pass2")):
+        n0 = k.LAUNCHES
+        kern = lambda: k.optimize_pose(*args, **kw)
+        res[name] = {
+            "n_rounds": kw.get("n_rounds", 4),
+            "ms": _event_ms(torch, kern),
+            "device_ms": _device_ms(torch, kern),
+            "plain_ms": _event_ms(torch, lambda: pose_opt.optimize_pose_plain(*args, **kw),
+                                  n=3, batch=1, warm=1),
+        }
+        res[name]["launches"] = k.LAUNCHES - n0
+    p1, p2 = res["pass1"], res["pass2"]
+    res["library_ms"] = None
+    log(f"[kernel] {smi}: pose_lm, the step's pass 2 (1000 rows, 4 rounds): kernel "
+        f"{p2['ms']:.4f} ms (device {p2['device_ms']:.4f}), plain {p2['plain_ms']:.2f} ms; "
+        f"pass 1 (2 rounds): kernel {p1['ms']:.4f} ms (device {p1['device_ms']:.4f}), "
+        f"plain {p1['plain_ms']:.2f} ms; worst |dR|, |dt| {res['max_abs_err']:.3g}")
+    return res
+
+
 def _context(FusedContext, SlamConfig, fx):
     cfg = SlamConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0,
                      k1=0.0, k2=0.0, p1=0.0, p2=0.0, n_features=1000,
@@ -1001,14 +1125,16 @@ def phase_slice(torch, fast_cuda, FusedContext, SlamConfig, fx):
     _seed(ctx, fx)
     images = [torch.as_tensor(im).cuda() for im in fx["images"]]
     K = len(images)
+    from orbslam_jpminipc_torch.ops import pose_lm_cuda
+
     torch.cuda.synchronize()
-    fast_cuda.LAUNCHES = 0
+    fast_cuda.LAUNCHES = pose_lm_cuda.LAUNCHES = 0
     outs = []
     for k in range(K):
         out = ctx.track(images[k])
         outs.append(out)
     torch.cuda.synchronize()
-    launches = fast_cuda.LAUNCHES
+    launches, lm_launches = fast_cuda.LAUNCHES, pose_lm_cuda.LAUNCHES
     rows = []
     for k, out in enumerate(outs):
         R, t = out.R.cpu().numpy(), out.t.cpu().numpy()
@@ -1042,17 +1168,21 @@ def phase_slice(torch, fast_cuda, FusedContext, SlamConfig, fx):
         "bind_eq": min(r["bind_eq"] for r in rows),
         "inl2_rel": max(r["inl2_rel"] for r in rows),
     }
-    log(f"[slice] worst over {K} frames: {json.dumps(worst)}; FAST launches {launches}")
+    log(f"[slice] worst over {K} frames: {json.dumps(worst)}; FAST launches {launches}, "
+        f"pose LM launches {lm_launches}")
     if launches != K:
         raise AssertionError(f"FAST kernel launched {launches} times, expected {K} "
                              f"(one launch per frame)")
+    if lm_launches != 2 * K:
+        raise AssertionError(f"pose LM kernel launched {lm_launches} times, expected {2 * K} "
+                             f"(pass 1 and pass 2 a frame)")
     if max(worst["dR"], worst["dt"]) > TOL_POSE:
         raise AssertionError(f"pose off the reference by {worst}")
     if worst["bind_eq"] < TOL_BIND or worst["inl2_rel"] > TOL_INLIERS:
         raise AssertionError(f"bindings off the reference: {worst}")
     recovery = _recovery_frame(torch, ctx, images[0], fx)
-    return {"frames": K, "fast_launches": launches, "worst": worst, "rows": rows,
-            "recovery": recovery}
+    return {"frames": K, "fast_launches": launches, "pose_lm_launches": lm_launches,
+            "worst": worst, "rows": rows, "recovery": recovery}
 
 
 def _recovery_frame(torch, ctx, image, fx):
@@ -1152,9 +1282,13 @@ def phase_breakdown(torch, fx, FusedContext, SlamConfig):
         "search_by_projection_4096x1000": host_ms(lambda: matching.search_by_projection(
             slc.desc, uv, pred, slc.max_dist > 0, feats.desc, feats.xy, feats.level,
             feats.valid, sf, 4.0, level_window=(-1, 1))),
+        # on the card `optimize_pose` is the kernel (ops/pose_lm_cuda.py)
         "optimize_pose_4_rounds_1000": host_ms(lambda: pose_opt.optimize_pose(
             ctx.R, ctx.t, xw, feats.xy, torch.ones(1000, device="cuda"), valid,
             ctx.step.K4)),
+        "optimize_pose_plain_4_rounds_1000": host_ms(lambda: pose_opt.optimize_pose_plain(
+            ctx.R, ctx.t, xw, feats.xy, torch.ones(1000, device="cuda"), valid,
+            ctx.step.K4), n=3, warm=1),
     }
     log(f"[breakdown] ms (host clock, synchronised): {json.dumps(parts)}")
 
@@ -3986,7 +4120,9 @@ def main() -> int:
     phases = {
         "kernel": lambda: dict(phase_kernel(torch, fast, fast_cuda, pyramid, fx),
                                small_linalg=kernel_small_linalg(torch, smi),
-                               epnp_n1_case=epnp_n1_cost(torch, smi)),
+                               epnp_n1_case=epnp_n1_cost(torch, smi),
+                               pose_lm=kernel_pose_lm(torch, smi, fx, FusedContext,
+                                                      SlamConfig)),
         "slice": lambda: phase_slice(torch, fast_cuda, FusedContext, SlamConfig, fx),
         "throughput": lambda: phase_throughput(torch, FusedContext, SlamConfig, fx),
         "breakdown": lambda: phase_breakdown(torch, fx, FusedContext, SlamConfig),
@@ -4028,6 +4164,7 @@ def main() -> int:
 
     k = report["kernel"]["frame"]
     sl = report["kernel"]["small_linalg"]
+    plm = report["kernel"]["pose_lm"]
     b = report["pipelined"]["branch_kernel"]
     log(f"chip_smoke: {report['device']}: the whole script took "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -4104,6 +4241,22 @@ def main() -> int:
         "bound_ms": sl["bound_ms"], "bound_by": sl["bound_by"],
         # torch.linalg.eigh / svd on the same float32 inputs
         "library_ms": sl["library_ms"], "device_ms": sl["device_ms"],
+    }, {
+        # the reference's pose LM, left to XLA (no Pallas counterpart)
+        "name": "pose_lm",
+        "route": "cuda",
+        "source": "orbslam_jpminipc_torch/csrc/pose_lm.cu",
+        "replaces": "orbslam_jpminipc_tpu/solvers/pose_opt.py:60",
+        # the slice phase's count: pass 1 and pass 2 a frame
+        "launches": report["slice"]["pose_lm_launches"],
+        "max_abs_err": plm["max_abs_err"],
+        # the step's pass 2: 1000 rows, 4 rounds
+        "ms": plm["pass2"]["ms"], "plain_ms": plm["pass2"]["plain_ms"],
+        "device_ms": plm["pass2"]["device_ms"],
+        # a latency floor (csrc/pose_lm.cu), not bytes or operations
+        "bound_by": "latency",
+        # no single PyTorch call computes this function
+        "library_ms": None,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

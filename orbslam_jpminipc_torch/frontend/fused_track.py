@@ -84,6 +84,7 @@ class FusedOut(NamedTuple):
     flags: torch.Tensor      # (M,) uint8: FLAG_VISIBLE | FLAG_FOUND
     feats: Features          # the frame's features
     xy_un: torch.Tensor      # (N, 2) undistorted keypoints
+    recovered: torch.Tensor  # () bool: the recovery pass ran (pass 1's test)
 
 
 def pack_slice(xyz, normal, min_dist, max_dist, desc, n_obs, n_valid,
@@ -291,6 +292,7 @@ class FusedStep(nn.Module):
             n_inl2=r2.n_inliers, n_inl1=n_inl1,
             n_match2=p2.n_match, n_match1=p.n_match1,
             feat_bind=feat_bind, flags=flags, feats=p.feats, xy_un=p.xy_un,
+            recovered=p.recover,
         )
 
     def forward(self, image_u8, R_prev, t_prev, vel_R, vel_t, has_vel,
@@ -473,12 +475,30 @@ class FusedContext:
                else torch.from_numpy(np.ascontiguousarray(image_u8)))
         self._detect.stage(img)
         self._chain.launch()
-        # the hand-written kernels inside `detect` (the FAST launch) ran
-        for add in self._detect.captured(None).launches:
-            add(1)
+        # the hand-written kernels the chain ran: FAST in `detect`, the pose
+        # LM in `pass1` and in pass 2's plain arm (the recovery arm's extra
+        # launch is counted when the step's read says it ran:
+        # `count_recovery`)
+        for cap in (self._detect.captured(None), self._pass1.captured(None),
+                    self._pass2.captured(False)):
+            for add in cap.launches:
+                add(1)
         self.last_fast_ok = self.last_pass1_inliers = None
         buf, layout = self._chain_out
         return unpack(buf.clone(), layout)
+
+    def count_recovery(self):
+        """A dispatched step took the recovery pass (`FusedOut.recovered`,
+        read with its outputs): count the hand-written kernel launches that
+        arm adds to the plain arm's, which `dispatch` counted. It runs the
+        plain arm's kernels and the recovery pass's. Nothing where no chain
+        ran (on the CPU `dispatch` is `track`, whose programs count their
+        own)."""
+        if self._chain is None:
+            return
+        plain, recover = self._pass2.captured(False), self._pass2.captured(True)
+        for add in recover.launches[len(plain.launches):]:
+            add(1)
 
     def _build_chain(self):
         from ..utils.graph_chain import Arm, Chain, Link

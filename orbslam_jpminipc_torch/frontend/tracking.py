@@ -92,24 +92,22 @@ class FusedRecord:
         self.t_dispatch = _monotonic()
 
 
-def _frame_tensors(out: fused_track.FusedOut) -> tuple:
-    """The step's features, in `_FEAT_FIELDS` order."""
-    f = out.feats
-    return f.xy, out.xy_un, f.level, f.angle, f.response, f.desc, f.valid
-
-
 def _record_fields(out: fused_track.FusedOut) -> tuple:
     """The step's outputs a completion reads, in `fused_complete`'s order:
-    pose, pass-2 inliers, bindings, slice flags, then the features."""
-    return (out.R, out.t, out.n_inl2, out.feat_bind, out.flags, *_frame_tensors(out))
+    pose, pass-2 inliers, bindings, slice flags, the features (in
+    `_FEAT_FIELDS` order), then whether the recovery pass ran."""
+    f = out.feats
+    return (out.R, out.t, out.n_inl2, out.feat_bind, out.flags,
+            f.xy, out.xy_un, f.level, f.angle, f.response, f.desc, f.valid, out.recovered)
 
 
 def _record_frame(rec: FusedRecord, host: tuple) -> Frame:
-    """The record's frame: its features on the device and, from the
-    record's read, on the host."""
+    """The record's frame, its features from the record's read. It keeps no
+    device tensors: those are views of the step's whole packed outputs
+    (~75 kB a frame), which a caller holding the frame would keep on the
+    card; the host path uploads what it needs (`Frame.feature_tensor`)."""
     return Frame(rec.frame_id, rec.timestamp, n_feat=int(host[3].shape[0]),
-                 host=dict(zip(_FEAT_FIELDS, host[5:])),
-                 dev=dict(zip(_FEAT_FIELDS, _frame_tensors(rec.out))))
+                 host=dict(zip(_FEAT_FIELDS, host[5:5 + len(_FEAT_FIELDS)])))
 
 
 def _scatter_bindings(idx, mask, n: int) -> torch.Tensor:
@@ -544,7 +542,7 @@ class Tracker:
         it only when it has not landed."""
         st = self.map
         with get_tracer().stage("track_pull"):
-            host = rec.future.result()
+            host = self._take(rec)
         R, t, n_inl2, bind, flags = host[:5]
         frame = _record_frame(rec, host)
         frame.R = R.astype(np.float32)
@@ -615,8 +613,16 @@ class Tracker:
         against state the host has since rewritten, so its result is not
         used. The frame is tracked again on the host path from the step's
         features; the extraction is not redone."""
-        frame = _record_frame(rec, rec.future.result())
+        frame = _record_frame(rec, self._take(rec))
         return self.process_frame(frame), frame
+
+    def _take(self, rec: FusedRecord) -> tuple:
+        """The record's read (waiting only if it has not landed); the step's
+        recovery pass, when it ran, counts its kernel launches now."""
+        host = rec.future.result()
+        if host[-1]:
+            self.fused.count_recovery()
+        return host
 
     # ------------------------------------------------------------------
     # initialization (Tracking.cc:360-420 + CreateInitialMap :422-524)

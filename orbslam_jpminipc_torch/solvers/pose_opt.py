@@ -10,6 +10,11 @@ The reference's `lax.while_loop` leaves a round early once an accepted
 step gains less than 1e-5 relatively. Here each round runs its full
 iteration budget and a `done` flag freezes the state once it is set: the
 same result, with no host synchronisation per iteration.
+
+`optimize_pose` is what the callers use: on CUDA tensors it is one launch of
+the hand-written kernel (ops/pose_lm_cuda.py, csrc/pose_lm.cu), on CPU
+tensors `optimize_pose_plain`, the plain version here and the kernel's
+oracle.
 """
 from __future__ import annotations
 
@@ -53,7 +58,17 @@ def _lm_step(R, t, H, b, lam):
     return R_new, t_new, delta
 
 
-def optimize_pose(
+def optimize_pose(R0, t0, xw, uv, inv_sigma2, valid, K4, use_huber_rounds: int = 2,
+                  n_rounds: int = 4) -> PoseOptResult:
+    """Pose refinement with chi2 re-gating (`optimize_pose_plain`): the
+    kernel on a card, the plain version on the CPU."""
+    from ..ops import pose_lm_cuda
+
+    return pose_lm_cuda.optimize_pose(R0, t0, xw, uv, inv_sigma2, valid, K4,
+                                      use_huber_rounds=use_huber_rounds, n_rounds=n_rounds)
+
+
+def optimize_pose_plain(
     R0: torch.Tensor,
     t0: torch.Tensor,
     xw: torch.Tensor,          # (N, 3) fixed map points

@@ -82,7 +82,7 @@ def fetch(*tensors: torch.Tensor) -> tuple[np.ndarray, ...]:
         _tracer.note_wait(t0, time.perf_counter_ns())
     else:
         buf = buf.cpu()
-    _tracer.counts["reads"] += 1
+    _tracer.count("reads")
     return _split(buf.numpy(), _layout(tensors))
 
 
@@ -101,7 +101,7 @@ class AsyncFetch:
         self._host.copy_(dev, non_blocking=True)
         self._event = torch.cuda.Event()
         self._event.record()
-        _tracer.counts["reads"] += 1
+        _tracer.count("reads")
 
     def done(self) -> bool:
         """Has the copy landed? Never waits for the device."""

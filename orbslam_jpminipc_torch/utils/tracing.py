@@ -2,10 +2,11 @@
 card's own busy intervals (counterpart of orbslam_jpminipc_tpu/utils/tracing.py).
 
 One tracer per process (`get_tracer()`). Always on: per-span wall time
-totals, counts and samples (p50/p95), the counter `reads` (device -> host
-copies, `utils/host.py`) and the `log()` hook, which does nothing and is
-there for a caller to wrap. A span's time is the host's wall clock; on the
-card it includes whatever the span waited for on the device.
+totals, counts and samples (p50/p95), the counters (`count`: `reads`,
+device -> host copies, `utils/host.py`; `pose_lm_launches`, the pose LM
+kernel's launches, `ops/pose_lm_cuda.py`) and the `log()` hook, which does
+nothing and is there for a caller to wrap. A span's time is the host's wall
+clock; on the card it includes whatever the span waited for on the device.
 
 Detail mode (`tracer.detail = True`, off by default) adds, with no profiler
 attached:
@@ -27,13 +28,15 @@ attached:
   `device.<program>` and `idle.<span>`, each gap between intervals put down
   to the innermost host span open at its middle (`harness` outside every
   span, between calls);
+* counters per call: each `count` is kept with its time and the id of the
+  call it happened in (`marks`);
 * while a `torch.profiler` records, each span also opens
   `record_function("slam.<name>")`, so the spans sit in its trace. The
   card's idle time across the profiler's teardown is put down to nothing:
   the first span after it resolves what is pending and takes a new anchor.
 
-`export(path)` writes the span ring and the card's intervals as one Chrome
-trace on the host clock.
+`export(path)` writes the span ring, the counters' marks and the card's
+intervals as one Chrome trace on the host clock.
 """
 from __future__ import annotations
 
@@ -146,6 +149,8 @@ class StageTracer:
         self.records: deque = deque(maxlen=RING)
         # (start ns, end ns, program, id of the span that launched it)
         self.intervals: deque = deque(maxlen=RING)
+        # (ns, counter, amount, id of the call it was counted in)
+        self.marks: deque = deque(maxlen=RING)
         self._pending: deque = deque()   # (begin, end, program, span id)
         self._dev_end = 0                # end of the card's last interval, host ns
         self._profiled = False           # a profiler recorded at the last span's open
@@ -240,6 +245,15 @@ class StageTracer:
             self._resolve(wait=True)
         self._anchor()
 
+    def count(self, name: str, n: int = 1):
+        """Add `n` to the counter `name`; in detail mode also keep the
+        addition with its time and the call it happened in (0 outside
+        every call), so the trace shows the counter per call."""
+        self.counts[name] += n
+        if self._detail:
+            self.marks.append((perf_counter_ns(), name, n,
+                               self._stack[-1].call if self._stack else 0))
+
     def note_wait(self, t0: int, t1: int):
         """A host wait from `t0` to `t1` (perf_counter_ns), in detail mode."""
         dt = t1 - t0
@@ -314,6 +328,7 @@ class StageTracer:
         self.samples.clear()
         self.records.clear()
         self.intervals.clear()
+        self.marks.clear()
         self._pending.clear()
         if self._detail:
             self._anchor()
@@ -337,7 +352,8 @@ class StageTracer:
         return out
 
     def export(self, path: str):
-        """Write the span ring and the card's intervals as one Chrome trace
+        """Write the span ring, the counters' marks (instant events on the
+        host's track) and the card's intervals as one Chrome trace
         (microseconds of the host's perf_counter clock): a track for the
         host, one for the card. Resolves what is still pending first, after
         a synchronise."""
@@ -351,6 +367,9 @@ class StageTracer:
                        "dur": (t1 - t0) / 1e3,
                        "args": {"id": sid, "parent": parent, "call": call,
                                 "self_us": (t1 - t0 - child) / 1e3, "wait_us": wait / 1e3}})
+        for t, name, n, call in self.marks:
+            ev.append({"name": name, "ph": "i", "s": "t", "pid": 1, "tid": 1, "ts": t / 1e3,
+                       "args": {"n": n, "call": call}})
         for t0, t1, name, sid in self.intervals:
             ev.append({"name": name, "ph": "X", "pid": 1, "tid": 2, "ts": t0 / 1e3,
                        "dur": (t1 - t0) / 1e3, "args": {"span": sid}})

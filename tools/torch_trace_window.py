@@ -14,7 +14,8 @@ metrics. Then it writes the tracer's Chrome trace (`StageTracer.export`)
 and reads it back for:
 
 * the books of every call: the self times of the spans in it against the
-  `call` span, and their own waits;
+  `call` span, and their own waits; the counters per call (how many calls
+  counted each amount of `pose_lm_launches`, `reads`);
 * the card's intervals: whether any two overlap on the stream;
 * the calls at or above the 95th percentile of the call spans (the profiled
   stretch left out): which spans' self time and waits fill them, against
@@ -99,6 +100,14 @@ def books(trace: dict, stretch: tuple[int, int]) -> dict:
     for e in card:
         if span_call.get(e["args"]["span"]) in tail_ids:
             tail_dev[e["name"]] += e["dur"] / 1e3
+    # the counters' marks per call: {counter: {amount in a call: calls}}
+    counted = collections.defaultdict(collections.Counter)
+    for e in trace["traceEvents"]:
+        if e["ph"] == "i" and e["args"]["call"] in index:
+            counted[e["name"]][e["args"]["call"]] += e["args"]["n"]
+    counters = {name: dict(sorted(collections.Counter(
+        per_call.get(c["args"]["id"], 0) for c in calls).items()))
+        for name, per_call in counted.items()}
     between = [calls[i + 1]["ts"] - (calls[i]["ts"] + calls[i]["dur"])
                for i in range(len(calls) - 1) if not stretch[0] - 1 <= i <= stretch[1]]
     return {
@@ -110,6 +119,7 @@ def books(trace: dict, stretch: tuple[int, int]) -> dict:
         "tail": fill(tail), "body": fill([c for c in outside if c["dur"] < p95]),
         "tail_device_ms_per_call": {k: v / max(len(tail), 1)
                                     for k, v in tail_dev.most_common(8)},
+        "counters_per_call": counters,
     }
 
 
@@ -212,6 +222,7 @@ def main(argv=None) -> int:
         "clock_drift_us": seen["drift_ns"] / 1e3, "drift_over_s": seen["drift_over_s"],
         "records_kept": len(tracer.records), "ring": tracer.records.maxlen,
         "reads": tracer.counts["reads"],
+        "pose_lm_launches": tracer.counts["pose_lm_launches"],
     })
 
     if args.sync_seconds > 0:
